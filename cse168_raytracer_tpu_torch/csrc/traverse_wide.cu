@@ -1,0 +1,353 @@
+// Wide-BVH closest-hit and any-hit traversal for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel cse168_raytracer_tpu/ops/pallas_bvh.py::
+// _traverse4_one (launched from pallas_bvh_closest_hit_triangles) in its
+// closest-hit-with-attributes and any-hit modes, for W = 4 and W = 8
+// trees. It reads the JAX package's tree arrays byte for byte:
+//   cbox  (N, 8W) f32, plane-grouped: lo_x[W] lo_y[W] lo_z[W]
+//         hi_x[W] hi_y[W] hi_z[W] pad[2W]; empty slots are degenerate
+//         boxes at 1e30 linked to leaf 0 (the slab test rejects them);
+//   links (N*W,) i32: >= 0 an internal node, < 0 the leaf -link-1;
+//   leafW (L, 16, 4K) f32: column k holds triangle k's Pluecker rows for
+//         beta (col k), gamma (K+k) and den (2K+k) in rows 0-5 against
+//         the ray operand [d, o x d], and the t numerator (3K+k) in rows
+//         6-9 against [o, 1];
+//   attrA (L, 16, 2K) f32: attribute row r < 16 of lane k at [r][k],
+//         row 16+r at [r][K+k] (ops/surface.py pack_attr_rows layout).
+//
+// What bounds it on this card: divergent, latency-bound node and leaf
+// fetches, not FLOPs. A leaf visit does ~30 flops per triangle against
+// ~90 bytes of leaf operands, and which leaf comes next depends on the
+// last fetch. The simple design answers that with occupancy and
+// coherence: one thread walks one ray with its own stack, threads take
+// rays in the integrator's 16x8 pixel-block order so that a warp's rays
+// walk nearly the same nodes (their fetches coalesce into broadcasts and
+// hit L1), the leaf loop reads each operand column in order so a cache
+// line serves 32 consecutive triangles, and the winner's attributes are
+// gathered once after the walk. wgmma, TMA, warp-level traversal and a
+// leaf re-layout are left for later work.
+//
+// Arithmetic: the Pluecker sums, divisions and products use the
+// round-to-nearest intrinsics in one fixed order, never a fused
+// multiply-add, so the results equal the plain PyTorch twin in
+// ops/wide_bvh.py bit for bit. Build without --use_fast_math: it would
+// change the IEEE divisions and flush denormals.
+//
+// The walk is plain C++ so that it also compiles for the host
+// (g++ -x c++, where HD is `inline` and the intrinsics are the plain
+// operators), where the CPU tests run it against the twin.
+
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define HD __device__ __forceinline__
+#define LDG(p) __ldg(p)
+#else
+#define HD inline
+#define LDG(p) (*(p))
+static inline float __fmul_rn(float a, float b) { return a * b; }
+static inline float __fadd_rn(float a, float b) { return a + b; }
+static inline float __fsub_rn(float a, float b) { return a - b; }
+static inline float __fdiv_rn(float a, float b) { return a / b; }
+#endif
+
+namespace {
+
+constexpr int K = 128;                  // triangles per leaf
+constexpr float BIG = 3.0e37f;          // ops/intersect.py _BIG (a miss)
+constexpr float DEN_TINY = 1e-30f;      // ops/intersect.py _DEN_TINY
+constexpr float NEG_EPS = (float)(-1e-4);      // -config.EPSILON
+constexpr float ONE_EPS = (float)(1.0 + 1e-4);  // 1 + config.EPSILON
+constexpr float BOX_PAD = 1e-3f;        // slot widening, 5x 2*EPSILON
+
+enum : int { ERR_STACK = 1, ERR_LINK = 2 };
+
+struct Tree {
+  const float* cbox;
+  const int* links;
+  const float* leafW;
+  const float* attrA;
+  int n_nodes;
+  int n_leaves;
+};
+
+struct Ray {
+  float o[3], d[3], m[3], rcp[3];
+  float tmin, tmax;
+};
+
+HD float slab_near(float a) { return isnan(a) ? -INFINITY : a; }
+HD float slab_far(float a) { return isnan(a) ? INFINITY : a; }
+
+// One Pluecker numerator: rows 0-5 of column `col` against [d, m].
+HD float sum6(const float* lw, int col, const Ray& r) {
+  const int s = 4 * K;
+  float acc = __fmul_rn(LDG(lw + col), r.d[0]);
+  acc = __fadd_rn(acc, __fmul_rn(LDG(lw + s + col), r.d[1]));
+  acc = __fadd_rn(acc, __fmul_rn(LDG(lw + 2 * s + col), r.d[2]));
+  acc = __fadd_rn(acc, __fmul_rn(LDG(lw + 3 * s + col), r.m[0]));
+  acc = __fadd_rn(acc, __fmul_rn(LDG(lw + 4 * s + col), r.m[1]));
+  return __fadd_rn(acc, __fmul_rn(LDG(lw + 5 * s + col), r.m[2]));
+}
+
+// The t numerator: rows 6-9 of column 3K+k against [o, 1].
+HD float sum4(const float* lw, int k, const Ray& r) {
+  const int s = 4 * K, col = 3 * K + k;
+  float acc = __fmul_rn(LDG(lw + 6 * s + col), r.o[0]);
+  acc = __fadd_rn(acc, __fmul_rn(LDG(lw + 7 * s + col), r.o[1]));
+  acc = __fadd_rn(acc, __fmul_rn(LDG(lw + 8 * s + col), r.o[2]));
+  return __fadd_rn(acc, LDG(lw + 9 * s + col));
+}
+
+// Nearest accepted triangle of one leaf with t in [tmin, curmax]
+// (acceptance rule of ops/pallas_bvh.py:1241-1244); the first lane wins
+// ties. Returns BIG when none is accepted.
+HD float shade_leaf(const float* lw, const Ray& r, float curmax, int* lane) {
+  float lt = BIG;
+  int lj = 0;
+  for (int k = 0; k < K; ++k) {
+    const float b = sum6(lw, k, r);
+    const float g = sum6(lw, K + k, r);
+    const float den = sum6(lw, 2 * K + k, r);
+    const float tn = sum4(lw, k, r);
+    const bool tiny = fabsf(den) < DEN_TINY;
+    const float inv = __fdiv_rn(1.0f, tiny ? 1.0f : den);
+    const float beta = __fmul_rn(b, inv);
+    const float gamma = __fmul_rn(g, inv);
+    const float tt = __fmul_rn(tn, inv);
+    const bool ok = beta >= NEG_EPS && gamma >= NEG_EPS &&
+                    __fadd_rn(beta, gamma) <= ONE_EPS && tt >= r.tmin &&
+                    tt <= curmax && !tiny;
+    if (ok && tt < lt) {
+      lt = tt;
+      lj = k;
+    }
+  }
+  *lane = lj;
+  return lt;
+}
+
+// Walk the tree for one ray. `stack` holds this ray's slots at a stride
+// of `stride` ints. Returns the best t (BIG on a miss) and its id; any-hit
+// returns at the first accepted triangle.
+template <int W, bool ANY_HIT>
+HD float walk(const Tree& tree, const Ray& r, int* stack, long stride,
+              int stack_depth, int* best_id, int* err) {
+  float best = BIG;
+  *best_id = 0;
+  if (!(r.tmax >= r.tmin)) return best;  // dead and padded lanes
+  int sp = 0;
+  stack[0] = 0;
+  sp = 1;
+  while (sp > 0) {
+    const int node = stack[(long)(--sp) * stride];
+    if (node >= 0) {
+      if (node >= tree.n_nodes) {
+        *err |= ERR_LINK;
+        return best;
+      }
+      const float curmax = fminf(r.tmax, best);
+      const float* cb = tree.cbox + (long)node * 8 * W;
+      for (int i = 0; i < W; ++i) {
+        float ent = r.tmin, ext = curmax;
+        for (int a = 0; a < 3; ++a) {
+          // The acceptance rule admits points up to 2*EPSILON of the
+          // triangle's extent outside it, so each slot is widened by
+          // BOX_PAD of its own extent; without that the walk misses hits
+          // that lie just past a shared edge, which the brute force finds.
+          // An empty slot has zero extent and stays a degenerate point.
+          const float lo = LDG(cb + a * W + i);
+          const float hi = LDG(cb + 3 * W + a * W + i);
+          const float pad = (hi - lo) * BOX_PAD;
+          const float ta = (lo - pad - r.o[a]) * r.rcp[a];
+          const float tb = (hi + pad - r.o[a]) * r.rcp[a];
+          // 0*inf is NaN: that axis must not constrain the interval
+          ent = fmaxf(ent, fminf(slab_near(ta), slab_near(tb)));
+          ext = fminf(ext, fmaxf(slab_far(ta), slab_far(tb)));
+        }
+        if (ent <= ext) {
+          if (sp >= stack_depth) {
+            *err |= ERR_STACK;
+            return best;
+          }
+          stack[(long)(sp++) * stride] = LDG(tree.links + (long)node * W + i);
+        }
+      }
+    } else {
+      const int leaf = -node - 1;
+      if (leaf >= tree.n_leaves) {
+        *err |= ERR_LINK;
+        return best;
+      }
+      int lane;
+      const float* lw = tree.leafW + (long)leaf * 16 * 4 * K;
+      const float lt = shade_leaf(lw, r, fminf(r.tmax, best), &lane);
+      if (lt < best) {
+        best = lt;
+        *best_id = leaf * K + lane;
+        if (ANY_HIT) return best;
+      }
+    }
+  }
+  return best;
+}
+
+HD Ray load_ray(const float* o, const float* d, const float* tmin,
+                const float* tmax, long i) {
+  Ray r;
+  for (int a = 0; a < 3; ++a) {
+    r.o[a] = LDG(o + 3 * i + a);
+    r.d[a] = LDG(d + 3 * i + a);
+    r.rcp[a] = __fdiv_rn(1.0f, r.d[a]);
+  }
+  r.m[0] = __fsub_rn(__fmul_rn(r.o[1], r.d[2]), __fmul_rn(r.o[2], r.d[1]));
+  r.m[1] = __fsub_rn(__fmul_rn(r.o[2], r.d[0]), __fmul_rn(r.o[0], r.d[2]));
+  r.m[2] = __fsub_rn(__fmul_rn(r.o[0], r.d[1]), __fmul_rn(r.o[1], r.d[0]));
+  r.tmin = LDG(tmin + i);
+  r.tmax = LDG(tmax + i);
+  return r;
+}
+
+// The winner's 32 attribute floats, zeros on a miss.
+HD void gather_attr(const Tree& tree, float best, int id, float* out) {
+  if (best < BIG) {
+    const float* a = tree.attrA + (long)(id / K) * 16 * 2 * K;
+    const int lane = id % K;
+    for (int r = 0; r < 16; ++r) {
+      out[r] = LDG(a + r * 2 * K + lane);
+      out[16 + r] = LDG(a + r * 2 * K + K + lane);
+    }
+  } else {
+    for (int r = 0; r < 32; ++r) out[r] = 0.0f;
+  }
+}
+
+template <int W, bool ANY_HIT>
+HD void trace_one(const Tree& tree, const float* o, const float* d,
+                  const float* tmin, const float* tmax, long i, long n,
+                  int* stack, int stack_depth, float* out_t, int* out_id,
+                  float* out_attr, int* err) {
+  const Ray r = load_ray(o, d, tmin, tmax, i);
+  int id;
+  const float best =
+      walk<W, ANY_HIT>(tree, r, stack + i, n, stack_depth, &id, err);
+  out_t[i] = best;
+  if (!ANY_HIT) {
+    out_id[i] = id;
+    gather_attr(tree, best, id, out_attr + 32 * i);
+  }
+}
+
+#ifdef __CUDACC__
+
+template <int W, bool ANY_HIT>
+__global__ void __launch_bounds__(128)
+    traverse_kernel(Tree tree, const float* __restrict__ o,
+                    const float* __restrict__ d,
+                    const float* __restrict__ tmin,
+                    const float* __restrict__ tmax, int n, int* stack,
+                    int stack_depth, float* out_t, int* out_id,
+                    float* out_attr, int* err) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int e = 0;
+  trace_one<W, ANY_HIT>(tree, o, d, tmin, tmax, i, n, stack, stack_depth,
+                        out_t, out_id, out_attr, &e);
+  if (e) atomicOr(err, e);
+}
+
+template <bool ANY_HIT>
+int launch(int width, Tree tree, const float* o, const float* d,
+           const float* tmin, const float* tmax, int n, int* stack,
+           int stack_depth, float* out_t, int* out_id, float* out_attr,
+           int* err, cudaStream_t stream) {
+  const int threads = 128;  // one 16x8 pixel block of rays
+  const int blocks = (n + threads - 1) / threads;
+  if (width == 4)
+    traverse_kernel<4, ANY_HIT><<<blocks, threads, 0, stream>>>(
+        tree, o, d, tmin, tmax, n, stack, stack_depth, out_t, out_id,
+        out_attr, err);
+  else if (width == 8)
+    traverse_kernel<8, ANY_HIT><<<blocks, threads, 0, stream>>>(
+        tree, o, d, tmin, tmax, n, stack, stack_depth, out_t, out_id,
+        out_attr, err);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+#endif  // __CUDACC__
+
+}  // namespace
+
+#ifdef __CUDACC__
+
+// Closest hit with the winner's attribute row. Outputs: out_t (n,) f32
+// (BIG on a miss), out_id (n,) i32 = leaf*K + lane (0 on a miss),
+// out_attr (n, 32) f32 (zeros on a miss). `stack` is (stack_depth, n)
+// i32 scratch; `err` one i32 that the wrapper zeroes and reads back.
+// Returns cudaGetLastError() after the launch.
+extern "C" int traverse_closest_attr(
+    int width, const void* o, const void* d, const void* tmin,
+    const void* tmax, int n, const void* cbox, const void* links,
+    const void* leafW, const void* attrA, int n_nodes, int n_leaves,
+    void* stack, int stack_depth, void* out_t, void* out_id, void* out_attr,
+    void* err, void* stream) {
+  const Tree tree{(const float*)cbox, (const int*)links, (const float*)leafW,
+                  (const float*)attrA, n_nodes, n_leaves};
+  return launch<false>(width, tree, (const float*)o, (const float*)d,
+                       (const float*)tmin, (const float*)tmax, n,
+                       (int*)stack, stack_depth, (float*)out_t, (int*)out_id,
+                       (float*)out_attr, (int*)err, (cudaStream_t)stream);
+}
+
+// Any hit: out_t < BIG marks an occluded ray. Same conventions.
+extern "C" int traverse_any(int width, const void* o, const void* d,
+                            const void* tmin, const void* tmax, int n,
+                            const void* cbox, const void* links,
+                            const void* leafW, int n_nodes, int n_leaves,
+                            void* stack, int stack_depth, void* out_t,
+                            void* err, void* stream) {
+  const Tree tree{(const float*)cbox, (const int*)links, (const float*)leafW,
+                  nullptr, n_nodes, n_leaves};
+  return launch<true>(width, tree, (const float*)o, (const float*)d,
+                      (const float*)tmin, (const float*)tmax, n, (int*)stack,
+                      stack_depth, (float*)out_t, nullptr, nullptr,
+                      (int*)err, (cudaStream_t)stream);
+}
+
+#else  // host build
+
+// The same walk on the host, one ray after another, for the CPU tests.
+// Arguments as traverse_closest_attr; any_hit selects the mode (then
+// out_id and out_attr are unused). Returns the error bits.
+extern "C" int traverse_host(int width, int any_hit, const float* o,
+                             const float* d, const float* tmin,
+                             const float* tmax, int n, const float* cbox,
+                             const int* links, const float* leafW,
+                             const float* attrA, int n_nodes, int n_leaves,
+                             int* stack, int stack_depth, float* out_t,
+                             int* out_id, float* out_attr) {
+  const Tree tree{cbox, links, leafW, attrA, n_nodes, n_leaves};
+  int err = 0;
+  for (long i = 0; i < n; ++i) {
+    if (width == 4 && any_hit)
+      trace_one<4, true>(tree, o, d, tmin, tmax, i, n, stack, stack_depth,
+                         out_t, out_id, out_attr, &err);
+    else if (width == 4)
+      trace_one<4, false>(tree, o, d, tmin, tmax, i, n, stack, stack_depth,
+                          out_t, out_id, out_attr, &err);
+    else if (any_hit)
+      trace_one<8, true>(tree, o, d, tmin, tmax, i, n, stack, stack_depth,
+                         out_t, out_id, out_attr, &err);
+    else
+      trace_one<8, false>(tree, o, d, tmin, tmax, i, n, stack, stack_depth,
+                          out_t, out_id, out_attr, &err);
+  }
+  return err;
+}
+
+#endif

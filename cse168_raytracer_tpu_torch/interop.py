@@ -1,0 +1,87 @@
+"""Carry the JAX package's scenes and cameras over to the port.
+
+The functions take the JAX package's Scene, SceneStatic and Camera with
+their array leaves already converted to numpy (for example
+`jax.tree.map(np.asarray, scene)` on the caller's side) and build the
+port's counterparts on `device`, so both packages render the very same
+inputs. This module reads attributes only and imports no JAX. An
+attached accelerator is not carried over: call ops.accel.attach_accel
+on the result.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cse168_raytracer_tpu_torch.models.geometry import (PlanePool, SpherePool,
+                                                        TrianglePack)
+from cse168_raytracer_tpu_torch.models.lights import light_table_from_arrays
+from cse168_raytracer_tpu_torch.models.materials import MaterialTable
+from cse168_raytracer_tpu_torch.models.scene import Scene, SceneStatic
+from cse168_raytracer_tpu_torch.models.textures import Environment
+from cse168_raytracer_tpu_torch.render.camera import (Camera,
+                                                      camera_from_arrays)
+
+
+def _t(x, device, dtype=None):
+    return torch.as_tensor(np.array(x, dtype=dtype), device=device)
+
+
+def _fields(obj, names, device):
+    return {k: _t(getattr(obj, k), device) for k in names}
+
+
+def scene_from_numpy(scene, static, device="cpu"):
+    """(Scene, SceneStatic) of the port from the JAX package's scene and
+    static facts with numpy leaves."""
+    for name in ("images", "cellulars"):
+        if len(getattr(scene, name, ())):
+            raise NotImplementedError(f"scene.{name}: ROADMAP item A10")
+    for name in ("photons", "blpatches"):
+        if getattr(scene, name, None) is not None:
+            raise NotImplementedError(f"scene.{name} is not ported yet")
+    if scene.env.image is not None:
+        raise NotImplementedError("image environments: ROADMAP item A10")
+
+    tp = scene.tris
+    pack = TrianglePack(
+        **_fields(tp, ("v0", "e1", "e2", "n_geo", "n0", "n1", "n2",
+                       "t0", "t1", "t2", "has_uv", "material_id", "valid"),
+                  device),
+        w6=None if tp.w6 is None else _t(tp.w6, device),
+        w4=None if tp.w4 is None else _t(tp.w4, device),
+        n_valid=int(np.asarray(tp.valid).sum()))
+    pool_f = ("material_id", "valid")
+    spheres = SpherePool(**_fields(scene.spheres, ("center", "radius")
+                                   + pool_f, device))
+    planes = PlanePool(**_fields(scene.planes, ("origin", "normal") + pool_f,
+                                 device))
+    materials = MaterialTable(**_fields(
+        scene.materials, ("kd", "ks", "kt", "shininess", "ior",
+                          "texture_kind", "texture_params",
+                          "texture_color2", "image_id"), device))
+    lt = scene.lights
+    lights = light_table_from_arrays(lt.kind, lt.position, lt.normal,
+                                     lt.color, lt.wattage, lt.radius,
+                                     lt.dims, device)
+    env = scene.env
+    environment = Environment(
+        cloud_params=(None if env.cloud_params is None
+                      else _t(env.cloud_params, device)),
+        rotation=_t(env.rotation, device), bg_color=_t(env.bg_color, device),
+        quirk_cloud_env_black=bool(env.quirk_cloud_env_black))
+    port_scene = Scene(tris=pack, spheres=spheres, planes=planes,
+                       materials=materials, lights=lights, env=environment)
+    port_static = SceneStatic(
+        texture_kinds=tuple(int(k) for k in static.texture_kinds),
+        any_bump=bool(static.any_bump), num_lights=int(static.num_lights),
+        any_refractive=bool(static.any_refractive),
+        any_reflective=bool(static.any_reflective))
+    return port_scene, port_static
+
+
+def camera_from_numpy(cam, device="cpu") -> Camera:
+    """The port's Camera from the JAX package's camera (numpy leaves)."""
+    return camera_from_arrays(cam.eye, cam.view_dir, cam.up, cam.fov,
+                              cam.bg_color, device)

@@ -1,0 +1,91 @@
+"""Scene container and its static facts.
+
+Counterpart of cse168_raytracer_tpu/models/scene.py: the geometry
+pools, material and light tables and environment in one dataclass, plus
+`SceneStatic`, the host-known facts that select code paths (texture
+kinds present, bump maps, light count, reflective / refractive
+materials).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+
+from cse168_raytracer_tpu_torch.models.geometry import (PlanePool, SpherePool,
+                                                        TrianglePack,
+                                                        empty_plane_pool,
+                                                        empty_sphere_pool,
+                                                        empty_triangle_pack)
+from cse168_raytracer_tpu_torch.models.lights import (LightTable,
+                                                      make_light_table)
+from cse168_raytracer_tpu_torch.models.materials import (MaterialBuilder,
+                                                         MaterialTable)
+from cse168_raytracer_tpu_torch.models.textures import (Environment,
+                                                        active_kinds,
+                                                        has_bump,
+                                                        make_environment)
+
+
+@dataclasses.dataclass
+class Scene:
+    """All traced scene data; `accel` is attached by ops/accel.py."""
+    tris: TrianglePack
+    spheres: SpherePool
+    planes: PlanePool
+    materials: MaterialTable
+    lights: LightTable
+    env: Environment
+    accel: Optional[object] = None
+
+    def replace(self, **kw) -> "Scene":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tris.v0.device
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneStatic:
+    """Host-known scene facts that select code paths."""
+    texture_kinds: tuple
+    any_bump: bool
+    num_lights: int
+    any_refractive: bool
+    any_reflective: bool
+
+
+def make_static(materials: MaterialTable, lights: LightTable) -> SceneStatic:
+    return SceneStatic(
+        texture_kinds=active_kinds(materials),
+        any_bump=has_bump(materials),
+        num_lights=int(lights.num_lights),
+        any_refractive=bool((materials.kt > 0).any()),
+        any_reflective=bool((materials.ks > 0).any()))
+
+
+def make_scene(tris: Optional[TrianglePack] = None,
+               spheres: Optional[SpherePool] = None,
+               planes: Optional[PlanePool] = None,
+               materials: Optional[MaterialTable] = None,
+               lights: Optional[Sequence[dict]] = None,
+               env: Optional[Environment] = None,
+               device="cpu") -> tuple[Scene, SceneStatic]:
+    if tris is None:
+        tris = empty_triangle_pack(device=device)
+    if spheres is None:
+        spheres = empty_sphere_pool(device)
+    if planes is None:
+        planes = empty_plane_pool(device)
+    if materials is None:
+        materials = MaterialBuilder().build(device)
+    light_table = (lights if isinstance(lights, LightTable)
+                   else make_light_table(list(lights or []), device))
+    if env is None:
+        env = make_environment(device=device)
+    scene = Scene(tris=tris, spheres=spheres, planes=planes,
+                  materials=materials, lights=light_table, env=env)
+    return scene, make_static(materials, light_table)

@@ -1,0 +1,69 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source under cse168_raytracer_tpu_torch/csrc/ is compiled by
+`nvcc` for Hopper (sm_90a) into a shared library with a plain C
+interface, loaded with ctypes. The build happens at first use, into
+cse168_raytracer_tpu_torch/_build/<hash>/, keyed on a hash of the
+source and the flags, so an edited source is rebuilt and an unchanged
+one is loaded as it is. Nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+# what the builds of this process did: {source: {"seconds", "log", "path"}}
+BUILD_INFO: dict = {}
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def build_library(source: str) -> str:
+    """Compile csrc/<source> (if not already built) and return the path
+    of its shared library."""
+    src_path = os.path.join(CSRC, source)
+    with open(src_path, "rb") as f:
+        src = f.read()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = os.path.join(BUILD, key)
+    lib = os.path.join(out_dir, "lib" + os.path.splitext(source)[0] + ".so")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(lib):
+            t0 = time.perf_counter()
+            tmp = lib + ".tmp"
+            res = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                                  src_path], capture_output=True, text=True)
+            if res.returncode:
+                raise RuntimeError(f"nvcc failed on {source}:\n"
+                                   f"{res.stdout}\n{res.stderr}")
+            os.replace(tmp, lib)
+            BUILD_INFO[source] = {"seconds": time.perf_counter() - t0,
+                                  "log": res.stdout + res.stderr,
+                                  "path": lib}
+    return lib
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    return ctypes.CDLL(build_library(source))

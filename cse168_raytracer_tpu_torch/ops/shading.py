@@ -1,0 +1,137 @@
+"""Wavefront shading: closest hit, normals, Phong direct lighting.
+
+Counterpart of cse168_raytracer_tpu/ops/shading.py (Phong::shade,
+Phong.cpp:44-161, and the normal step of Scene::trace, Scene.cpp:
+232-266):
+- per light, a shadow ray from P + l*eps with tMax = the light
+  distance; any-hit traversal when nothing is refractive, else a closest
+  hit whose refractive occluders attenuate by dot(N_occluder, l)
+  instead of blocking (Phong.cpp:98-113);
+- point-light falloff 1/(4 pi^2 r^2) (Phong.cpp:140);
+- diffuse term light_color * max(0, nDotL * falloff * wattage) *
+  texColor * kd, which is the reference's kd^2 for untextured
+  materials since texColor == kd there;
+- specular highlight max(0, min(1, dot(e, r)))^500 * falloff * wattage
+  added to every channel when shininess < infinity (Phong.cpp:149-156).
+Bump maps come with the textures (ROADMAP item A10); without them the
+normal step is plain normalization.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cse168_raytracer_tpu_torch.config import EPSILON, MIRO_TMAX
+from cse168_raytracer_tpu_torch.core.fastgather import take_rows
+from cse168_raytracer_tpu_torch.core.vecmath import dot, ipow, safe_normalize
+from cse168_raytracer_tpu_torch.models.lights import nee_sample
+from cse168_raytracer_tpu_torch.models.materials import (SHININESS_INF,
+                                                         is_refractive)
+from cse168_raytracer_tpu_torch.models.scene import Scene, SceneStatic
+from cse168_raytracer_tpu_torch.models.textures import diffuse_color
+from cse168_raytracer_tpu_torch.ops.accel import (scene_any_hit,
+                                                  scene_closest_hit)
+from cse168_raytracer_tpu_torch.ops.intersect import closest_hit
+from cse168_raytracer_tpu_torch.ops.surface import Surface, make_surface
+
+
+def _closest(scene: Scene, o, d, tmin, tmax):
+    """(Hit, triangle attribute rows or None) through the tree when the
+    scene has one, else by brute force."""
+    if scene.accel is not None:
+        return scene_closest_hit(scene.accel, scene.spheres, scene.planes,
+                                 o, d, tmin, tmax)
+    return closest_hit(scene.tris, scene.spheres, scene.planes, o, d,
+                       tmin, tmax), None
+
+
+def trace_closest(scene: Scene, static: SceneStatic, o, d, tmin=0.0,
+                  tmax=MIRO_TMAX):
+    """Scene::trace: closest hit, surface and normalized shading
+    normal. Returns (Hit, Surface)."""
+    hit, attr = _closest(scene, o, d, tmin, tmax)
+    surf = make_surface(scene.tris, scene.spheres, scene.planes, o, d, hit,
+                        tri_attr=attr)
+    surf.n = apply_bump(static, surf)
+    return hit, surf
+
+
+def apply_bump(static: SceneStatic, surf: Surface):
+    """The normal step of Scene.cpp:234-263; with no bump map in the
+    scene it reduces to normalizing the interpolated normal."""
+    if static.any_bump:
+        raise NotImplementedError("bump maps: ROADMAP item A10")
+    return safe_normalize(surf.n)
+
+
+def shade_direct(scene: Scene, static: SceneStatic, ray_d: torch.Tensor,
+                 surf: Surface, disable_shadows: bool = False,
+                 light_samples: int = 1):
+    """Phong::shade over a wavefront; ray_d: (N, 3) incoming directions.
+    Returns ((N, 3) direct radiance, zero where surf.hit is False; the
+    texture colour; shadow rays per shading point)."""
+    mats = scene.materials
+    mid = surf.material_id
+    tex_color = diffuse_color(mats, mid, surf.uv, static.texture_kinds)
+    kd = take_rows(mats.kd, mid)
+    shininess = take_rows(mats.shininess, mid)
+    n = surf.n
+    e = -ray_d
+
+    total = torch.zeros_like(surf.p)
+    n_shadow = 0
+    for li in range(static.num_lights):
+        for _ in range(light_samples):
+            s = nee_sample(scene.lights, li, surf.p, n)
+            intensity = torch.ones_like(s.dist)
+            occluded = torch.zeros(s.dist.shape, dtype=torch.bool,
+                                   device=n.device)
+            if not disable_shadows:
+                # shadow ray (Phong.cpp:91-114), suppressed for lanes
+                # that missed, face away with no highlight, or lie
+                # outside a light's beam
+                sh_o = surf.p + s.l * EPSILON
+                sh_d = s.l
+                could_shine = (s.n_dot_l > 0.0) | (shininess < SHININESS_INF)
+                sh_live = surf.hit & could_shine & s.in_beam
+                sh_tmax = torch.where(sh_live, s.dist, -1.0)
+                n_shadow += 1
+                if scene.accel is not None and not static.any_refractive:
+                    occluded = scene_any_hit(scene.accel, scene.spheres,
+                                             scene.planes, sh_o, sh_d, 0.0,
+                                             sh_tmax)
+                else:
+                    sh_hit, sh_attr = _closest(scene, sh_o, sh_d, 0.0,
+                                               sh_tmax)
+                    occluded = sh_hit.hit
+                    if static.any_refractive:
+                        # refractive occluders attenuate instead of block
+                        sh_surf = make_surface(scene.tris, scene.spheres,
+                                               scene.planes, sh_o, sh_d,
+                                               sh_hit, tri_attr=sh_attr)
+                        occ_refr = is_refractive(mats, sh_surf.material_id)
+                        occ_ndl = dot(safe_normalize(sh_surf.n), s.l)
+                        pass_through = (occluded & occ_refr
+                                        & (occ_ndl >= EPSILON))
+                        intensity = torch.where(pass_through, occ_ndl,
+                                                intensity)
+                        occluded = occluded & ~pass_through
+            visible = ~occluded & s.in_beam
+
+            # wattage / samples (Phong.cpp:145,153)
+            w = scene.lights.wattage[li] / light_samples
+            lcol = scene.lights.color[li]
+            diff_term = torch.clamp(s.n_dot_l * s.falloff * w, min=0.0)
+            contrib = (lcol * diff_term[..., None] * tex_color * kd
+                       * intensity[..., None])
+            # specular highlight (Phong.cpp:149-156), a scalar on rgb
+            r = -s.l + 2.0 * dot(s.l, n)[..., None] * n
+            e_dot_r = ipow(torch.clamp(dot(e, r), 0.0, 1.0), 500)
+            highlight = torch.clamp(e_dot_r * s.falloff * w, min=0.0)
+            has_highlight = shininess < SHININESS_INF
+            contrib = contrib + torch.where(has_highlight, highlight,
+                                            0.0)[..., None]
+            total = total + torch.where(visible[..., None], contrib, 0.0)
+
+    total = torch.where(surf.hit[..., None], total, 0.0)
+    return total, tex_color, n_shadow

@@ -1,0 +1,456 @@
+"""Wide (W = 4 or 8) SAH BVH: host build, CUDA traversal, plain twin.
+
+Counterpart of cse168_raytracer_tpu/ops/pallas_bvh.py:162-208 and
+780-1017. The host build (`_collapse_wide`, `_leafW_from_pack`,
+`_attrA_from_pack`, `build_bvh4_sah`) is the JAX package's numpy code,
+copied, so the tree arrays are byte-equal to the Pallas kernel's.
+
+Traversal (`closest_hit_triangles`, `any_hit_triangles`) runs the
+hand-written CUDA kernel csrc/traverse_wide.cu on CUDA tensors; it
+replaces the Pallas kernel `_traverse4_one` in its closest-hit-with-
+attributes and any-hit modes, for both the W=4 tree and the W=8 tree of
+scenes above 300k triangles. On CPU tensors the same entry points run
+the plain PyTorch twin, a chunked brute force over the leaf table with
+the same acceptance rule, first-lane ties and attribute gather. For a
+CUDA tensor a wrapper launches the kernel or raises; it never falls
+back to the twin.
+
+Traversal inputs are detached: hits are discrete selections, and the
+winner's continuous quantities are recomputed differentiably in
+ops/surface.py.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from cse168_raytracer_tpu_torch.config import EPSILON
+from cse168_raytracer_tpu_torch.core.vecmath import cross
+from cse168_raytracer_tpu_torch.models.geometry import (TrianglePack,
+                                                        pack_host_arrays,
+                                                        plucker_operands)
+from cse168_raytracer_tpu_torch.ops import cuda_build
+from cse168_raytracer_tpu_torch.ops.intersect import _BIG, _DEN_TINY
+
+K = 128          # triangles per leaf
+_FAR = 1.0e30    # empty-slot box (a degenerate point the slab test rejects)
+
+# kernel launches by mode, counted where the wrapper launches the kernel
+LAUNCHES = {"closest": 0, "any": 0}
+
+
+@dataclasses.dataclass
+class WideBVH:
+    """A W-wide SAH BVH in the Pallas kernel's layout."""
+    cbox: torch.Tensor   # (N, 8W) f32, plane-grouped slot boxes
+    links: torch.Tensor  # (N*W,) i32: >= 0 internal node, < 0 leaf ~link
+    leafW: torch.Tensor  # (L, 16, 4K) f32 Pluecker operands, planar groups
+    attrA: torch.Tensor  # (L, 16, 2K) f32 winner-attribute blocks
+    n_nodes: int
+    n_leaves: int
+    stack_depth: int
+    width: int
+
+
+def _leafW_from_pack(w6: np.ndarray, w4: np.ndarray,
+                     n_leaves: int) -> np.ndarray:
+    """Leaf operands with planar output columns [beta(K) | gamma(K) |
+    den(K) | t(K)] from a leaf-ordered pack's w6 (6, T, 3) and w4 (4, T)."""
+    leafW = np.zeros((n_leaves, 16, 4 * K), np.float32)
+    w6l = w6.reshape(6, n_leaves, K, 3)
+    # full-array reshape is a view; lane dim viewed as (group, K)
+    leafW4 = leafW.reshape(n_leaves, 16, 4, K)
+    leafW4[:, 0:6, 0:3, :] = w6l.transpose(1, 0, 3, 2)
+    leafW4[:, 6:10, 3, :] = w4.reshape(4, n_leaves, K).transpose(1, 0, 2)
+    return leafW
+
+
+def _attrA_from_pack(a: dict, n_leaves: int) -> np.ndarray:
+    """Per-leaf attribute blocks (L, 16, 2K) from a leaf-ordered pack's
+    host arrays: the 29 ops/surface.pack_attr_rows columns padded to 32
+    rows, rows 16..31 stored in lanes K..2K."""
+    cols = [a["v0"], a["e1"], a["e2"], a["n_geo"], a["n0"], a["n1"],
+            a["n2"], a["t0"], a["t1"], a["t2"],
+            a["has_uv"][:, None].astype(np.float32),
+            a["material_id"][:, None].astype(np.float32)]
+    attr = np.zeros((n_leaves * K, 32), np.float32)
+    attr[:, :29] = np.concatenate(cols, axis=1)
+    a32 = attr.reshape(n_leaves, K, 32).transpose(0, 2, 1)  # (L, 32, K)
+    return np.ascontiguousarray(
+        np.concatenate([a32[:, :16, :], a32[:, 16:, :]], axis=2))
+
+
+def _collapse_wide(nodes14: np.ndarray, W: int):
+    """Collapse a binary child-box tree (sah.py layout) into W-wide
+    nodes (W=4 default, W=8 via CSE168_NODE_W). Returns
+    (cbox (N, 8W) f32, links (N, W) i32, depth).
+
+    Row layout is PLANE-GROUPED for the kernel's slot-parallel slab
+    test: cols [lo_x(slot0..W-1) lo_y(W) lo_z(W) | hi_x(W) hi_y(W)
+    hi_z(W) | pad(2W)] — the kernel's (3W, T) lo/hi plane blocks slice
+    into aligned (W, T) per-axis groups whose row i is slot i, and all
+    W slots reduce together. Links live in a separate flat i32 array
+    (SMEM-resident in the kernel).
+
+    The binary->W-ary contraction is a DP that MINIMIZES the wide-node
+    count (the per-visit scalar overhead — cond, vector->scalar sync,
+    stack traffic — is width-independent, and box tests are near-free
+    VPU rows, so fewer/fuller nodes is strictly better):
+      g(v, s) = min wide-nodes to present v's subtree as s slots
+      g(v, s>=2) = min over sa+sb=s of g(a, sa) + g(b, sb)
+      g(v, 1)    = 1 + min over 2<=s<=W of g(v, s)
+    A greedy top-down expansion was measured leaving ~2/3 of the nodes
+    with just 2 occupied slots (leaf-pair leftovers); the DP emits
+    near-full nodes (bunny1 W=8: 353 greedy -> 118 DP nodes)."""
+    n_bin = nodes14.shape[0]
+    ch = nodes14[:, 12:14].astype(np.int64)
+    INF = np.int64(1) << 40
+    g = np.full((n_bin, W + 1), INF, np.int64)      # cols 1..W used
+    split = np.zeros((n_bin, W + 1), np.int64)
+    leaf_row = np.full(W + 1, INF, np.int64)
+    leaf_row[1] = 0
+    order = []
+    stack = [0]
+    while stack:
+        v = stack.pop()
+        order.append(v)
+        for c in ch[v]:
+            if c >= 0:
+                stack.append(int(c))
+    for v in reversed(order):
+        a, b = int(ch[v][0]), int(ch[v][1])
+        ga = leaf_row if a < 0 else g[a]
+        gb = leaf_row if b < 0 else g[b]
+        for s in range(2, W + 1):
+            costs = ga[1:s] + gb[s - 1:0:-1]        # sa = 1..s-1
+            sa = int(np.argmin(costs)) + 1
+            g[v, s] = costs[sa - 1]
+            split[v, s] = sa
+        s_best = int(np.argmin(g[v, 2:W + 1])) + 2
+        g[v, 1] = 1 + g[v, s_best]
+        split[v, 1] = s_best
+
+    rows, linkrows = [], []
+    new_id = {}
+
+    def collect(v, s):
+        """v's subtree as s slot entries [(lo, hi, raw_link)]."""
+        r = nodes14[v]
+        a, b = int(ch[v][0]), int(ch[v][1])
+        if s == 1:
+            return None     # unreachable: callers split s >= 2
+        sa = int(split[v, s])
+        out = []
+        for c, box, sc in ((a, r[0:6], sa), (b, r[6:12], s - sa)):
+            if sc == 1:
+                out.append((box[0:3], box[3:6], c))
+            else:
+                out.extend(collect(c, sc))
+        return out
+
+    def emit(v):
+        if v in new_id:
+            return new_id[v]
+        my = len(rows)
+        new_id[v] = my
+        rows.append(None)
+        linkrows.append(None)
+        slots = collect(v, int(split[v, 1]))
+        row = np.empty(6 * W, np.float32)
+        lrow = np.empty(W, np.int64)
+        for i in range(W):
+            if i < len(slots):
+                lo, hi, link = slots[i]
+                for a in range(3):
+                    row[a * W + i] = lo[a]
+                    row[3 * W + a * W + i] = hi[a]
+                # internal slot: emit the child wide node (recursion
+                # depth = wide-tree depth, ~log_W leaves)
+                lrow[i] = emit(link) if link >= 0 else link
+            else:
+                # empty slot: a DEGENERATE POINT at +infinity (lo == hi
+                # == _FAR): for almost any ray the per-axis entry t's
+                # differ (or overflow to +inf on at most two axes), so
+                # ent > ext and the slot never pushes. An INVERTED box
+                # (hi < lo) would be wrong here — per-axis tn=min/
+                # tf=max of the two plane t's spans (-inf, inf) for
+                # straddling planes, so an inverted box ACCEPTS every
+                # ray. The measure-zero escape (a ray aimed exactly at
+                # the degenerate point makes ent == ext pass) is made
+                # TERMINATING by linking the slot to leaf 0 (~0): a
+                # spurious leaf visit tests real triangles against the
+                # usual acceptance rules — redundant work, never a
+                # wrong hit, never a loop (an internal link 0 would
+                # re-push the root forever).
+                for a in range(3):
+                    row[a * W + i] = _FAR
+                    row[3 * W + a * W + i] = _FAR
+                lrow[i] = ~0
+        rows[my] = row
+        linkrows[my] = lrow
+        return my
+
+    import sys as _sys
+    old_lim = _sys.getrecursionlimit()
+    _sys.setrecursionlimit(max(old_lim, 100_000))
+    try:
+        emit(0)
+    finally:
+        _sys.setrecursionlimit(old_lim)
+    n = len(rows)
+    cbox = np.zeros((n, 8 * W), np.float32)
+    cbox[:, :6 * W] = np.stack(rows)
+    links = np.stack(linkrows).astype(np.int32)
+    # depth of the collapsed tree (for stack sizing): BFS
+    depth = 1
+    frontier = {0}
+    seen = set()
+    while frontier:
+        nxt = set()
+        for j in frontier:
+            seen.add(j)
+            for i in range(W):
+                link = int(links[j, i])
+                if cbox[j, i] < _FAR and link >= 0 and link not in seen:
+                    nxt.add(link)
+        frontier = nxt
+        if frontier:
+            depth += 1
+    if not len(seen) == n <= max(1, nodes14.shape[0]):
+        raise RuntimeError("wide-node collapse lost or duplicated a node")
+    return cbox, links, depth
+
+
+def build_bvh4_sah(pack: TrianglePack, width: int = 4,
+                   require_native: bool | None = None):
+    """SAH build (ops/sah.py) collapsed to `width`-wide nodes. Returns
+    (leaf-ordered pack without w6/w4, WideBVH) on the pack's device.
+    require_native defaults to True for a CUDA pack (see ops/sah.py)."""
+    from cse168_raytracer_tpu_torch.ops.sah import sah_build_and_reorder
+    device = pack.v0.device
+    if require_native is None:
+        require_native = device.type == "cuda"
+    new_pack, nodes14, n_leaves, _depth = sah_build_and_reorder(
+        pack, K, require_native=require_native, with_plucker=False)
+    cboxw, linksw, depthw = _collapse_wide(nodes14.astype(np.float32), width)
+    a = pack_host_arrays(new_pack)
+    w6, w4 = plucker_operands(a["v0"], a["e1"], a["e2"], n_geo=a["n_geo"])
+    t = lambda x: torch.as_tensor(x, device=device)
+    bvh = WideBVH(cbox=t(cboxw), links=t(linksw.reshape(-1)),
+                  leafW=t(_leafW_from_pack(np.asarray(w6, np.float32),
+                                           np.asarray(w4, np.float32),
+                                           n_leaves)),
+                  attrA=t(_attrA_from_pack(a, n_leaves)),
+                  n_nodes=int(cboxw.shape[0]), n_leaves=int(n_leaves),
+                  stack_depth=int((width - 1) * depthw + 8), width=width)
+    return new_pack, bvh
+
+
+# ---------------------------------------------------------------------------
+# Traversal: the CUDA kernel and its plain twin
+# ---------------------------------------------------------------------------
+
+def _bounds(o, tmin, tmax):
+    n = o.shape[0]
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32,
+                                     device=o.device).expand(n).contiguous()
+    return as_t(tmin), as_t(tmax)
+
+
+def _chunk_sizes(n_leaves: int, device) -> tuple[int, int]:
+    budget = (1 << 25) if device.type == "cuda" else (1 << 21)
+    leaves = max(1, min(n_leaves, budget // (K * 256)))
+    rays = max(1, budget // (K * leaves))
+    return rays, leaves
+
+
+@torch.no_grad()
+def _plain_walk(bvh: WideBVH, o, d, tmin, tmax):
+    """Brute force over every leaf: nearest accepted triangle per ray
+    under the kernel's acceptance rule, first (leaf, lane) on ties.
+    Only live rays (tmax >= tmin) are tested."""
+    n = o.shape[0]
+    best_t = torch.full((n,), _BIG, dtype=torch.float32, device=o.device)
+    best_id = torch.zeros((n,), dtype=torch.int64, device=o.device)
+    live = torch.nonzero(tmax >= tmin)[:, 0]
+    if live.numel() == 0:
+        return best_t, best_id
+    o, d, tmin, tmax = o[live], d[live], tmin[live], tmax[live]
+    m = cross(o, d)    # the ray moment, rounded as the kernel rounds it
+    r6 = [d[:, 0], d[:, 1], d[:, 2], m[:, 0], m[:, 1], m[:, 2]]
+    lw = bvh.leafW
+    n_leaves = bvh.n_leaves
+    rays_c, leaves_c = _chunk_sizes(n_leaves, o.device)
+    lt_all = torch.full((o.shape[0],), _BIG, device=o.device)
+    lid_all = torch.zeros((o.shape[0],), dtype=torch.int64, device=o.device)
+    for r0 in range(0, o.shape[0], rays_c):
+        rs = slice(r0, r0 + rays_c)
+        col = lambda x: x[rs][:, None, None]
+        bt = torch.full((lt_all[rs].shape[0],), _BIG, device=o.device)
+        bid = torch.zeros_like(bt, dtype=torch.int64)
+        for l0 in range(0, n_leaves, leaves_c):
+            blk = lw[l0:l0 + leaves_c]                  # (Lc, 16, 4K)
+
+            def sum6(c0):
+                acc = blk[None, :, 0, c0:c0 + K] * col(r6[0])
+                for r in range(1, 6):
+                    acc = acc + blk[None, :, r, c0:c0 + K] * col(r6[r])
+                return acc                              # (R, Lc, K)
+
+            b, g, den = sum6(0), sum6(K), sum6(2 * K)
+            tc = slice(3 * K, 4 * K)
+            tn = blk[None, :, 6, tc] * col(o[:, 0])
+            tn = tn + blk[None, :, 7, tc] * col(o[:, 1])
+            tn = tn + blk[None, :, 8, tc] * col(o[:, 2])
+            tn = tn + blk[None, :, 9, tc]
+            tiny = den.abs() < _DEN_TINY
+            inv = 1.0 / torch.where(tiny, 1.0, den)
+            beta, gamma, tt = b * inv, g * inv, tn * inv
+            ok = ((beta >= -EPSILON) & (gamma >= -EPSILON)
+                  & (beta + gamma <= 1.0 + EPSILON)
+                  & (tt >= col(tmin)) & (tt <= col(tmax)) & ~tiny)
+            tm = torch.where(ok, tt, _BIG).reshape(ok.shape[0], -1)
+            lt, lj = tm.min(1)
+            better = lt < bt
+            bt = torch.where(better, lt, bt)
+            bid = torch.where(better, lj + l0 * K, bid)
+        lt_all[rs], lid_all[rs] = bt, bid
+    best_t[live], best_id[live] = lt_all, lid_all
+    return best_t, best_id
+
+
+def _gather_attr(bvh: WideBVH, t, ids):
+    """The winner's (N, 32) attribute rows from attrA, zeros on a miss."""
+    leaf, lane = ids // K, ids % K
+    lo = bvh.attrA[leaf, :, lane]                       # (N, 16)
+    hi = bvh.attrA[leaf, :, lane + K]
+    attr = torch.cat([lo, hi], 1)
+    return torch.where((t < _BIG)[:, None], attr, 0.0)
+
+
+def closest_hit_triangles_plain(bvh: WideBVH, o, d, tmin, tmax):
+    """Plain PyTorch twin of the closest-hit kernel: (t, id, attr)."""
+    tmin, tmax = _bounds(o, tmin, tmax)
+    t, ids = _plain_walk(bvh, o.detach(), d.detach(), tmin, tmax)
+    return t, ids.to(torch.int32), _gather_attr(bvh, t, ids)
+
+
+def any_hit_triangles_plain(bvh: WideBVH, o, d, tmin, tmax):
+    """Plain PyTorch twin of the any-hit kernel: t, < _BIG if occluded."""
+    tmin, tmax = _bounds(o, tmin, tmax)
+    return _plain_walk(bvh, o.detach(), d.detach(), tmin, tmax)[0]
+
+
+_lib = None
+
+
+def _kernel_lib():
+    global _lib
+    if _lib is None:
+        lib = cuda_build.load_library("traverse_wide.cu")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.traverse_closest_attr.argtypes = [i, p, p, p, p, i, p, p, p, p,
+                                              i, i, p, i, p, p, p, p, p]
+        lib.traverse_closest_attr.restype = i
+        lib.traverse_any.argtypes = [i, p, p, p, p, i, p, p, p, i, i, p, i,
+                                     p, p, p]
+        lib.traverse_any.restype = i
+        _lib = lib
+    return _lib
+
+
+def _check_inputs(bvh: WideBVH, o, d, tmin, tmax):
+    dev = o.device
+    for name, x, dt in (("o", o, torch.float32), ("d", d, torch.float32),
+                        ("tmin", tmin, torch.float32),
+                        ("tmax", tmax, torch.float32),
+                        ("cbox", bvh.cbox, torch.float32),
+                        ("links", bvh.links, torch.int32),
+                        ("leafW", bvh.leafW, torch.float32),
+                        ("attrA", bvh.attrA, torch.float32)):
+        if x.device != dev or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dt} tensor on "
+                             f"{dev}, got {x.dtype} on {x.device}")
+    n, w = o.shape[0], bvh.width
+    if o.shape != (n, 3) or d.shape != (n, 3) or tmin.shape != (n,) \
+            or tmax.shape != (n,):
+        raise ValueError("rays: need o, d (N, 3) and tmin, tmax (N,)")
+    if w not in (4, 8) or bvh.cbox.shape != (bvh.n_nodes, 8 * w) \
+            or bvh.links.shape != (bvh.n_nodes * w,) \
+            or bvh.leafW.shape != (bvh.n_leaves, 16, 4 * K) \
+            or bvh.attrA.shape != (bvh.n_leaves, 16, 2 * K):
+        raise ValueError("WideBVH arrays do not match its width and counts")
+    if n >= 2 ** 31 or bvh.stack_depth * n >= 2 ** 62:
+        raise ValueError("too many rays for one launch")
+
+
+def _launch(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool):
+    o = o.detach().contiguous()
+    d = d.detach().contiguous()
+    _check_inputs(bvh, o, d, tmin, tmax)
+    n = o.shape[0]
+    out_t = torch.empty((n,), dtype=torch.float32, device=o.device)
+    out_id = out_attr = None
+    if n == 0:
+        return out_t, torch.empty((0,), dtype=torch.int32, device=o.device), \
+            torch.empty((0, 32), dtype=torch.float32, device=o.device)
+    lib = _kernel_lib()
+    stack = torch.empty((bvh.stack_depth * n,), dtype=torch.int32,
+                        device=o.device)
+    err = torch.zeros((1,), dtype=torch.int32, device=o.device)
+    stream = torch.cuda.current_stream(o.device).cuda_stream
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    common = [bvh.width, ptr(o), ptr(d), ptr(tmin), ptr(tmax), n,
+              ptr(bvh.cbox), ptr(bvh.links), ptr(bvh.leafW)]
+    if any_hit:
+        rc = lib.traverse_any(*common, bvh.n_nodes, bvh.n_leaves,
+                              ptr(stack), bvh.stack_depth, ptr(out_t),
+                              ptr(err), ctypes.c_void_p(stream))
+        mode = "any"
+    else:
+        out_id = torch.empty((n,), dtype=torch.int32, device=o.device)
+        out_attr = torch.empty((n, 32), dtype=torch.float32, device=o.device)
+        rc = lib.traverse_closest_attr(
+            *common, ptr(bvh.attrA), bvh.n_nodes, bvh.n_leaves, ptr(stack),
+            bvh.stack_depth, ptr(out_t), ptr(out_id), ptr(out_attr),
+            ptr(err), ctypes.c_void_p(stream))
+        mode = "closest"
+    if rc != 0:
+        raise RuntimeError(f"traverse_wide launch failed: CUDA error {rc}")
+    LAUNCHES[mode] += 1
+    bits = int(err.item())
+    if bits:
+        raise RuntimeError(f"traverse_wide: {'stack overflow ' if bits & 1 else ''}"
+                           f"{'bad link' if bits & 2 else ''} (error bits {bits})")
+    return out_t, out_id, out_attr
+
+
+def _route(o):
+    if o.device.type == "cpu":
+        return False
+    if o.device.type == "cuda":
+        return True
+    raise ValueError(f"no traversal for tensors on {o.device}")
+
+
+def closest_hit_triangles(bvh: WideBVH, o, d, tmin, tmax):
+    """Closest hit of N rays against the tree: (t (N,) f32, _BIG on a
+    miss; id (N,) i32 = leaf*K + lane; attr (N, 32) f32 winner rows,
+    zeros on a miss)."""
+    if not _route(o):
+        return closest_hit_triangles_plain(bvh, o, d, tmin, tmax)
+    tmin, tmax = _bounds(o, tmin, tmax)
+    return _launch(bvh, o, d, tmin, tmax, any_hit=False)
+
+
+def any_hit_triangles(bvh: WideBVH, o, d, tmin, tmax):
+    """Occlusion of N rays: t (N,) f32, < _BIG where some triangle lies
+    in [tmin, tmax]."""
+    if not _route(o):
+        return any_hit_triangles_plain(bvh, o, d, tmin, tmax)
+    tmin, tmax = _bounds(o, tmin, tmax)
+    return _launch(bvh, o, d, tmin, tmax, any_hit=True)[0]

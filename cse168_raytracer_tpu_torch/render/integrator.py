@@ -1,0 +1,254 @@
+"""Wavefront Whitted integrator.
+
+Counterpart of cse168_raytracer_tpu/render/integrator.py:92-423 for the
+deterministic path (point lights, one ray per pixel). Each recursion
+level of Scene::traceScene (Scene.cpp:270-346) is a fixed-capacity
+wavefront:
+
+  per level: closest hit -> direct lighting with shadow rays -> the
+  environment on a miss, accumulated per primary ray; then each ray
+  spawns up to two children:
+    mirror child  w *= ks + kt*Rs*[Rs > 0.01]  (the reference's
+      reflection and Fresnel-reflection rays share a direction here)
+    refract child w *= kt*(1 - Rs)  (TIR falls back to the mirror
+      direction inside refract(), Ray.h:224-227)
+  and the children are stream-compacted into the next level's pool.
+
+A scene with nothing reflective or refractive runs one level, as the
+reference's recursion stops after Phong::shade. Path tracing, DOF and
+more than one sample per pixel come with ROADMAP item A11.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cse168_raytracer_tpu_torch.config import (EPSILON, MIRO_TMAX,
+                                               RenderConfig)
+from cse168_raytracer_tpu_torch.core.fastgather import take_rows
+from cse168_raytracer_tpu_torch.core.vecmath import (fresnel_rs, reflect,
+                                                     refract, safe_normalize)
+from cse168_raytracer_tpu_torch.models.scene import Scene, SceneStatic
+from cse168_raytracer_tpu_torch.models.textures import env_lookup
+from cse168_raytracer_tpu_torch.ops.shading import shade_direct, trace_closest
+from cse168_raytracer_tpu_torch.render.camera import Camera, eye_rays
+
+
+@dataclasses.dataclass
+class Wavefront:
+    o: torch.Tensor       # (C, 3)
+    d: torch.Tensor       # (C, 3)
+    weight: torch.Tensor  # (C, 3)
+    pixel: torch.Tensor   # (C,) int64
+    alive: torch.Tensor   # (C,) bool
+
+
+@dataclasses.dataclass
+class RenderStats:
+    """Ray counts of a render (Stats.h equivalents), 0-d tensors on the
+    render's device."""
+    primary_rays: torch.Tensor
+    secondary_rays: torch.Tensor
+    shadow_rays: torch.Tensor
+    dropped_rays: torch.Tensor   # pool-overflow children
+
+
+def _pad_wavefront(o, d, weight, pixel, capacity: int) -> Wavefront:
+    n = o.shape[0]
+    pad = capacity - n
+    if pad < 0:
+        raise ValueError("wavefront larger than its capacity")
+    if pad:
+        z3 = o.new_zeros((pad, 3))
+        o = torch.cat([o, z3])
+        d = torch.cat([d, o.new_tensor([0.0, 0.0, 1.0]).expand(pad, 3)])
+        weight = torch.cat([weight, z3])
+        pixel = torch.cat([pixel, pixel.new_zeros((pad,))])
+    alive = torch.arange(capacity, device=o.device) < n
+    return Wavefront(o=o, d=d, weight=weight, pixel=pixel, alive=alive)
+
+
+def _compact(cands: Wavefront, capacity: int):
+    """Stream-compact alive candidates (leading dim >= capacity) into a
+    fresh pool of `capacity`, in order. Returns (Wavefront, dropped)."""
+    alive = cands.alive
+    idx = torch.cumsum(alive.to(torch.int64), 0) - 1
+    dest = torch.where(alive & (idx < capacity), idx, capacity)
+    dropped = (alive & (idx >= capacity)).sum()
+
+    def scat(x):
+        out = x.new_zeros((capacity + 1,) + x.shape[1:])
+        return out.index_put((dest,), x)[:capacity]
+
+    n_alive = alive.sum()
+    slot_alive = torch.arange(capacity, device=alive.device) < n_alive
+    d = torch.where(slot_alive[:, None], scat(cands.d),
+                    cands.d.new_tensor([0.0, 0.0, 1.0]))
+    return Wavefront(o=scat(cands.o), d=d, weight=scat(cands.weight),
+                     pixel=scat(cands.pixel), alive=slot_alive), dropped
+
+
+def integrate(scene: Scene, static: SceneStatic, o, d, pixel,
+              n_pixels: int, depth: int, capacity: Optional[int] = None,
+              disable_shadows: bool = False, light_samples: int = 1,
+              ray_order: bool = False):
+    """Trace a primary wavefront to completion.
+
+    o, d: (N, 3) primary rays; pixel: (N,) pixel ids in [0, n_pixels).
+    Returns (radiance (n_pixels, 3), RenderStats). ray_order=True
+    returns radiance per PRIMARY-RAY LANE (N, 3) instead: level 0 adds
+    elementwise and only child levels scatter into their primary lane.
+    """
+    n0 = o.shape[0]
+    dev = o.device
+    if capacity is None:
+        capacity = n0 * (2 if static.any_refractive else 1)
+    capacity = max(capacity, n0)
+    if ray_order:
+        n_pixels = n0
+        pixel = torch.arange(n0, device=dev)
+    radiance = torch.zeros((n_pixels, 3), dtype=torch.float32, device=dev)
+    wf = _pad_wavefront(o, d, torch.ones((n0, 3), device=dev),
+                        pixel.to(torch.int64), capacity)
+    mats = scene.materials
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    sec, shad, drop = zero, zero, zero
+    can_spawn = static.any_reflective or static.any_refractive
+    no_diffuse = torch.zeros(capacity, dtype=torch.bool, device=dev)
+
+    for level in range(depth + 1 if can_spawn else 1):
+        # dead lanes get tmax < tmin: the traversal skips them
+        lane_tmax = torch.where(wf.alive, MIRO_TMAX, -1.0)
+        hit, surf = trace_closest(scene, static, wf.o, wf.d, tmax=lane_tmax)
+        live_hit = wf.alive & hit.hit
+        direct, _tex, n_sh = shade_direct(scene, static, wf.d, surf,
+                                          disable_shadows=disable_shadows,
+                                          light_samples=light_samples)
+        # env on a miss (Scene.cpp:338-342); camera rays are never diffuse
+        env = env_lookup(scene.env, wf.d, no_diffuse)
+        add = torch.where(live_hit[:, None], direct,
+                          torch.where(wf.alive[:, None], env, 0.0))
+        if ray_order and level == 0:
+            radiance = radiance + (wf.weight * add)[:n_pixels]
+        else:
+            radiance = radiance.index_add(0, wf.pixel, wf.weight * add)
+        shad = shad + n_sh * live_hit.sum()
+        if not can_spawn:
+            break
+
+        # ---- children ----
+        mid = surf.material_id
+        n = surf.n
+        ks = take_rows(mats.ks, mid)
+        kt = take_rows(mats.kt, mid)
+        ior = take_rows(mats.ior, mid)
+        refl_flag = (ks > 0).any(-1)
+        refr_flag = (kt > 0).any(-1)
+        rs = fresnel_rs(wf.d, n, ior)
+        mirror_w = (torch.where(refl_flag[:, None], ks, 0.0)
+                    + torch.where((refr_flag & (rs > 0.01))[:, None],
+                                  kt * rs[:, None], 0.0))
+        refr_d, _tir = refract(wf.d, n, ior)
+        refr_w = torch.where(refr_flag[:, None], kt * (1.0 - rs[:, None]),
+                             0.0)
+        mirror_d = safe_normalize(reflect(wf.d, n))
+        refr_d = safe_normalize(refr_d)
+
+        def child(dir_c, w_c):
+            w = wf.weight * w_c
+            return Wavefront(o=surf.p + dir_c * EPSILON,  # Ray.h:91/162/241
+                             d=dir_c, weight=w, pixel=wf.pixel,
+                             alive=live_hit & (w > 0).any(-1))
+
+        c1, c2 = child(mirror_d, mirror_w), child(refr_d, refr_w)
+        cands = Wavefront(*(torch.cat([getattr(c1, f.name),
+                                       getattr(c2, f.name)])
+                            for f in dataclasses.fields(Wavefront)))
+        wf, dropped = _compact(cands, capacity)
+        sec = sec + wf.alive.sum()
+        drop = drop + dropped
+
+    stats = RenderStats(primary_rays=torch.tensor(n0, device=dev),
+                        secondary_rays=sec, shadow_rays=shad,
+                        dropped_rays=drop)
+    return radiance, stats
+
+
+@functools.lru_cache(maxsize=8)
+def block_ray_order(width: int, height: int):
+    """Pixel (x, y) of each ray in the 16x8 pixel-block order: each
+    block of 128 consecutive rays covers a compact image patch, so the
+    traversal's neighbouring threads take coherent paths. Cached (the
+    sort costs tens of milliseconds at 512x512); the arrays are
+    read-only."""
+    ys, xs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    xs, ys = xs.reshape(-1), ys.reshape(-1)
+    order = np.lexsort((xs % 16, ys % 8, xs // 16, ys // 8))
+    xs, ys = xs[order], ys[order]
+    xs.flags.writeable = ys.flags.writeable = False
+    return xs, ys
+
+
+def render_hdr(scene: Scene, static: SceneStatic, cam: Camera,
+               cfg: RenderConfig):
+    """Scene::raytraceImage before the tonemap (Scene.cpp:93-173), for
+    the deterministic path. Returns ((H, W, 3) linear HDR, RenderStats);
+    row 0 is the BOTTOM scanline (the reference's Image layout)."""
+    if cfg.path_tracing or cfg.dof:
+        raise NotImplementedError(
+            "path tracing, DOF and multi-sample rendering: ROADMAP item A11")
+    if cfg.collect_stats:
+        raise NotImplementedError(
+            "traversal counters (kernel K3): ROADMAP queue B")
+    w, h = cfg.width, cfg.height
+    n_pix = w * h
+    dev = scene.device
+    xs_n, ys_n = block_ray_order(w, h)
+    xs = torch.tensor(xs_n, device=dev)
+    ys = torch.tensor(ys_n, device=dev)
+    pixel = ys * w + xs
+    # the block order enumerates (yb, xb, yi, xi), so un-permuting
+    # ray-ordered radiance is a reshape + transpose
+    ray_order = (h % 8 == 0) and (w % 16 == 0)
+
+    def run(cxs, cys, cpix):
+        o, d = eye_rays(cam, cxs, cys, w, h)
+        return integrate(scene, static, o, d, cpix, n_pix, cfg.trace_depth,
+                         disable_shadows=cfg.disable_shadows,
+                         light_samples=cfg.light_samples,
+                         ray_order=ray_order)
+
+    if cfg.row_tile > 0:
+        # row bands of contiguous rays bound the wavefront's memory
+        rows = cfg.row_tile
+        if rows % 8 or h % rows:
+            raise ValueError(f"row_tile {rows} must be a multiple of 8 "
+                             f"dividing the height {h}")
+        cpx = w * rows
+        parts, all_stats = [], []
+        radiance = torch.zeros((n_pix, 3), device=dev)
+        for c0 in range(0, n_pix, cpx):
+            r, st = run(xs[c0:c0 + cpx], ys[c0:c0 + cpx],
+                        pixel[c0:c0 + cpx])
+            if ray_order:
+                parts.append(r)
+            else:
+                radiance = radiance + r
+            all_stats.append(st)
+        if ray_order:
+            radiance = torch.cat(parts)
+        stats = RenderStats(
+            primary_rays=torch.tensor(n_pix, device=dev),
+            **{f: sum(getattr(s, f) for s in all_stats)
+               for f in ("secondary_rays", "shadow_rays", "dropped_rays")})
+    else:
+        radiance, stats = run(xs, ys, pixel)
+    if ray_order:
+        radiance = (radiance.reshape(h // 8, w // 16, 8, 16, 3)
+                    .permute(0, 2, 1, 3, 4).reshape(h * w, 3))
+    return radiance.reshape(h, w, 3), stats

@@ -1,0 +1,88 @@
+"""The port's CUDA traversal kernel on the card.
+
+These tests need an NVIDIA GPU and the CUDA toolkit; without a GPU they
+skip. They import neither jax nor the JAX package, so they run on a
+machine that has only PyTorch:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from cse168_raytracer_tpu_torch.models.geometry import \
+    pack_triangles  # noqa: E402
+from cse168_raytracer_tpu_torch.ops import wide_bvh  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+BIG = 3.0e37
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def clustered_mesh(n_tri, seed):
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-2, 2, (12, 3))
+    c = centres[rng.integers(0, 12, n_tri)] + rng.normal(0, 0.4, (n_tri, 3))
+    v = (c[:, None, :] + rng.normal(0, 0.08, (n_tri, 3, 3))).reshape(-1, 3)
+    f = np.arange(n_tri * 3, dtype=np.int64).reshape(n_tri, 3)
+    return {"vertices": v.astype(np.float32),
+            "normals": rng.normal(0, 1, (n_tri * 3, 3)).astype(np.float32),
+            "texcoords": rng.uniform(0, 1, (n_tri * 3, 2)).astype(np.float32),
+            "tri_vidx": f, "tri_nidx": f, "tri_tidx": f}
+
+
+def rays(seed, n, device):
+    """Rays into the mesh; some along the axes (the NaN case of the slab
+    test) and some dead (tmax < tmin)."""
+    rng = np.random.default_rng(seed)
+    o = (np.float32([0, 0, -5]) + rng.normal(0, 0.3, (n, 3)))
+    d = rng.normal(0, 1.2, (n, 3)) - o
+    d[:4] = [[0, 0, 1], [1, 0, 0], [0, 1, 0], [0, 0, 1]]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = rng.uniform(3, 12, n)
+    tmax[4:8] = -1.0
+    t = lambda x: torch.as_tensor(np.float32(x), device=device)
+    return t(o), t(d), t(np.zeros(n)), t(tmax)
+
+
+@pytest.mark.parametrize("width", [4, 8])
+def test_kernel_matches_twin_on_card(cuda, width):
+    pack = pack_triangles([(clustered_mesh(3000, 16), 0)], device=cuda)
+    bvh = wide_bvh.build_bvh4_sah(pack, width=width)[1]
+    o, d, tmin, tmax = rays(60, 4096, cuda)
+    before = dict(wide_bvh.LAUNCHES)
+    t, ids, attr = wide_bvh.closest_hit_triangles(bvh, o, d, tmin, tmax)
+    occ = wide_bvh.any_hit_triangles(bvh, o, d, tmin, tmax)
+    torch.cuda.synchronize()
+    assert wide_bvh.LAUNCHES["closest"] == before["closest"] + 1
+    assert wide_bvh.LAUNCHES["any"] == before["any"] + 1
+    tp, idp, attrp = wide_bvh.closest_hit_triangles_plain(bvh, o, d, tmin,
+                                                          tmax)
+    hit = tp < BIG
+    assert torch.equal(t < BIG, hit) and 0 < int(hit.sum()) < 4096
+    assert torch.equal(t[hit], tp[hit])         # one arithmetic, one order
+    same = hit & (ids == idp)
+    assert float(same.sum()) / float(hit.sum()) > 0.99
+    assert torch.equal(attr[same], attrp[same])
+    assert not attr[~hit].any() and not ids[~hit].any()
+    assert torch.equal(occ < BIG, hit)
+
+
+def test_kernel_reports_stack_overflow(cuda):
+    pack = pack_triangles([(clustered_mesh(3000, 17), 0)], device=cuda)
+    bvh = wide_bvh.build_bvh4_sah(pack, width=4)[1]
+    assert bvh.n_nodes > 1
+    shallow = dataclasses.replace(bvh, stack_depth=1)
+    o, d, tmin, tmax = rays(61, 256, cuda)
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        wide_bvh.closest_hit_triangles(shallow, o, d, tmin, tmax)
