@@ -9,17 +9,24 @@ path (sponza_proxy at 512x512, trace depth 4, forward and backward of
 sum(render_hdr) with respect to the material table kd, as bench.py does
 for the JAX package; once as registered and once with its light moved
 inside the atrium, see lit_sponza), checks the card's renders against the CPU's,
-and times the kernel against the twin. Each phase prints its own lines;
-any failure raises and exits non-zero. The second-to-last line is a
-JSON object describing each kernel; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device it fails at once.
+and times the kernel against the twin (phases 1-6). Phase 7 holds the
+kernel's counting mode (K3) against the plain walk; phase 8 drives the
+command line's `render` on the card at 512x512 with --stats, Whitted and
+path-traced through the thin lens at 16 spp, each as registered and lit.
+Each phase prints its own lines; any failure raises and exits non-zero.
+The second-to-last line is a JSON object describing each kernel; the
+last line is {"ok": true, "device": {...}}. Without a CUDA device it
+fails at once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -32,6 +39,17 @@ PLAIN_BUDGET_S = 60.0
 PLAIN_SUBSET = 16384
 TOL = dict(rtol=1e-4, atol=1e-5)
 LIT_LIGHT = (0.0, 8.0, 0.0)
+SPP = 16
+
+# the least time of a traversal (on-chip-measurement guide: H100 SXM
+# peaks at its 700 W limit): the larger of its bytes over the memory
+# rate and its f32 operations, counted from traverse_wide.cu, over the
+# rate outside the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+OPS_PER_SLOT = 37    # per axis 8 add/sub/mul and 4 min/max; 1 compare
+OPS_PER_TRI = 53     # 44 mul/add/div (3 x 11 + 6 + 1 + 3 + 1), 9 cmp/select
+OPS_PER_RAY = 12     # 3 reciprocals and the 9 operations of the moment
 
 
 def log(*args):
@@ -262,7 +280,7 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 log("   ptxas:", line.strip())
     sah.load_native()
-    log("[2 build] native SAH builder csrc/libminiro.so loaded")
+    log(f"[2 build] native SAH builder {sah.native_library_path()} loaded")
     return build_s
 
 
@@ -278,6 +296,7 @@ def phase_kernel_vs_twin(device):
     from cse168_raytracer_tpu_torch.models.lights import LIGHT_POINT
     from cse168_raytracer_tpu_torch.models.scene import make_scene
     errs = {"closest": 0.0, "any": 0.0}
+    cases = []     # (label, tree, rays) for phase 7
     rng = np.random.default_rng(SEED)
     log("[3 kernel vs twin]")
     for n_tri in (1, 33, 80, 3000):
@@ -304,6 +323,8 @@ def phase_kernel_vs_twin(device):
     so, sd, stmax = shadow_rays(lit_sponza(scene), o, d)
     compare_traversal("sponza_proxy shadow", scene.accel, so, sd, 0.0, stmax,
                       errs)
+    cases += [("sponza_proxy primary", scene.accel, (o, d, 0.0, 1e12)),
+              ("sponza_proxy shadow", scene.accel, (so, sd, 0.0, stmax))]
 
     mb = MaterialBuilder()
     white = mb.phong()
@@ -321,7 +342,9 @@ def phase_kernel_vs_twin(device):
     so, sd, stmax = shadow_rays(big, o, d)
     compare_traversal("sponza_proxy 400k shadow", big.accel, so, sd, 0.0,
                       stmax, errs)
-    return errs
+    cases += [("sponza_proxy 400k primary", big.accel, (o, d, 0.0, 1e12)),
+              ("sponza_proxy 400k shadow", big.accel, (so, sd, 0.0, stmax))]
+    return errs, cases
 
 
 def lit_sponza(scene):
@@ -481,33 +504,249 @@ def phase_plain_timing(device, main, errs):
                f"{PLAIN_SUBSET} rays)"))
         out[mode] = {"ms": ms, "rays": n, "plain_ms": plain_ms,
                      "plain_rays": plain_n}
+
+    # the counting mode (K3) on the same rays: its cost beside the plain
+    # modes, and the visits that set each mode's bound
+    work = {}
+    for mode, args in (("closest", (o, d, 0.0, 1e12)),
+                       ("any", (so, sd, 0.0, stmax))):
+        any_hit = mode == "any"
+        kern = wb.any_hit_triangles if any_hit else wb.closest_hit_triangles
+        ms = time_cuda(lambda: kern(bvh, *args, with_stats=True), 10)
+        *_, box, tri = kern(bvh, *args, with_stats=True)
+        n = args[0].shape[0]
+        sub = tuple(a[:PLAIN_SUBSET] if torch.is_tensor(a) else a
+                    for a in args)
+        sub_ms = time_cuda(lambda: wb.walk_plain(bvh, *sub, any_hit=any_hit),
+                           1)
+        est_s = sub_ms / 1000 * n / PLAIN_SUBSET
+        if est_s <= PLAIN_BUDGET_S:
+            plain_ms, plain_n = time_cuda(
+                lambda: wb.walk_plain(bvh, *args, any_hit=any_hit), 1,
+                warm=False), n
+        else:
+            plain_ms, plain_n = sub_ms, PLAIN_SUBSET
+        visits = (int(box.sum(dtype=torch.int64)) // bvh.width,
+                  int(tri.sum(dtype=torch.int64)) // wb.K)
+        for counting in (False, True):
+            work[(mode, counting)] = traversal_work(bvh, n, any_hit, counting,
+                                                    *visits)
+        out["stats_" + mode] = {"ms": ms, "rays": n, "plain_ms": plain_ms,
+                                "plain_rays": plain_n,
+                                "internal_visits": visits[0],
+                                "leaf_visits": visits[1]}
+        log(f"[6 plain timing] {mode} with counters: kernel {ms:.3f} ms "
+            f"(without {out[mode]['ms']:.3f} ms) for {n} rays; walk_plain "
+            f"{plain_ms:.1f} ms for {plain_n} rays; {visits[0]} internal "
+            f"and {visits[1]} leaf visits ({visits[0] / n:.3f} and "
+            f"{visits[1] / n:.3f} per ray)")
+    for mode in ("closest", "any"):
+        out[mode].update(bound(work[(mode, False)]))
+        log(f"[6 bound] {mode}: {bound_line(work[(mode, False)])}; kernel "
+            f"{out[mode]['ms']:.3f} ms = "
+            f"{out[mode]['bound_ms'] / out[mode]['ms'] * 100:.2f}% of bound")
+    both = [work[(m, True)] for m in ("closest", "any")]
+    total = {k: sum(w[k] for w in both) for k in both[0]}
+    out["stats"] = {
+        "ms": out["stats_closest"]["ms"] + out["stats_any"]["ms"],
+        "plain_ms": (out["stats_closest"]["plain_ms"]
+                     + out["stats_any"]["plain_ms"]),
+        **bound(total)}
+    log(f"[6 bound] counting, both modes: {bound_line(total)}; kernels "
+        f"{out['stats']['ms']:.3f} ms")
     wb.LAUNCHES.update(saved)
     return out
+
+
+def traversal_work(bvh, n, any_hit, counting, internal, leaves):
+    """Bytes and f32 operations of one traversal of n rays that makes
+    `internal` and `leaves` visits: each ray's o, d, tmin, tmax read and
+    its outputs written once, the tree read once; W slab tests per
+    internal visit and K triangle tests per leaf visit."""
+    from cse168_raytracer_tpu_torch.ops.wide_bvh import K
+    tree = [bvh.cbox, bvh.links, bvh.leafW] + ([] if any_hit
+                                               else [bvh.attrA])
+    out_b = 4 if any_hit else 4 + 4 + 32 * 4      # t; t, id, attributes
+    out_b += 8 if counting else 0                 # two visit counts
+    nbytes = n * (32 + out_b) + sum(x.numel() * x.element_size()
+                                    for x in tree)
+    ops = (n * OPS_PER_RAY + internal * bvh.width * OPS_PER_SLOT
+           + leaves * K * OPS_PER_TRI)
+    return {"bytes": nbytes, "ops": ops}
+
+
+def bound(w):
+    """{"bound_ms", "bound_by"} of a traversal's work."""
+    t_bytes = w["bytes"] / HBM_BYTES_S * 1e3
+    t_ops = w["ops"] / F32_OPS_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def bound_line(w):
+    return (f"{w['bytes'] / 1e6:.3f} MB ({w['bytes'] / HBM_BYTES_S * 1e3:.4f}"
+            f" ms at 3.35 TB/s), {w['ops'] / 1e9:.3f} G f32 ops "
+            f"({w['ops'] / F32_OPS_S * 1e3:.4f} ms at 67 TFLOP/s): bound "
+            f"{bound(w)['bound_ms']:.4f} ms by {bound(w)['bound_by']}")
+
+
+def phase_k3(cases, errs):
+    """Kernel K3 against the plain walk on the card, on phase 3's 8,192
+    primary and shadow rays of the W=4 and W=8 trees, in both modes:
+    equal visit counts, and t, id and attributes as the kernel without
+    counters gives them."""
+    import torch
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    saved = dict(wb.LAUNCHES)
+    errs["stats"] = 0.0
+    for label, bvh, args in cases:
+        for any_hit in (False, True):
+            if any_hit:
+                t, box, tri = wb.any_hit_triangles(bvh, *args,
+                                                   with_stats=True)
+                same = torch.equal(t, wb.any_hit_triangles(bvh, *args))
+            else:
+                t, ids, attr, box, tri = wb.closest_hit_triangles(
+                    bvh, *args, with_stats=True)
+                t0, ids0, attr0 = wb.closest_hit_triangles(bvh, *args)
+                same = (torch.equal(t, t0) and torch.equal(ids, ids0)
+                        and torch.equal(attr, attr0))
+            tp, idp, n_int, n_leaf = wb.walk_plain(bvh, *args,
+                                                   any_hit=any_hit)
+            torch.cuda.synchronize()
+            mode = "any-hit" if any_hit else "closest+attr"
+            if not same:
+                raise AssertionError(f"{label} {mode}: counting changed "
+                                     "the kernel's results")
+            d_box = (box - bvh.width * n_int).abs().max()
+            d_tri = (tri - wb.K * n_leaf).abs().max()
+            hit = (t < 3e37) & (tp < 3e37)
+            d_t = float((t - tp)[hit].abs().max()) if hit.any() else 0.0
+            errs["stats"] = max(errs["stats"], d_t, float(d_box),
+                                float(d_tri))
+            if (int(d_box) or int(d_tri) or not torch.equal(t < 3e37,
+                                                            tp < 3e37)
+                    or d_t or (not any_hit and not torch.equal(ids, idp))):
+                raise AssertionError(
+                    f"{label} {mode}: K3 differs from walk_plain (box "
+                    f"{int(d_box)}, tri {int(d_tri)}, t {d_t})")
+            n = args[0].shape[0]
+            log(f"[7 K3] {label} {mode}: W={bvh.width} {n} rays, counts "
+                f"equal walk_plain's; per ray {float(box.double().mean()):.3f}"
+                f" box and {float(tri.double().mean()):.3f} triangle tests")
+    wb.LAUNCHES.update(saved)
+
+
+def lit_scene_builder():
+    """sponza_proxy with lit_sponza's light, as a registry entry for the
+    command line (runtime only: the registry keeps its three scenes)."""
+    from cse168_raytracer_tpu_torch.scenes.registry import scene_sponza_proxy
+
+    def scene_sponza_proxy_lit(cfg, device=None):
+        scene, static, cam, cfg = scene_sponza_proxy(cfg, device)
+        return lit_sponza(scene), static, cam, cfg
+    return scene_sponza_proxy_lit
+
+
+def phase_cli(card):
+    """The command line's render on the card at 512x512, depth 4, with
+    --stats: (a) Whitted and (b) path-traced through the thin lens at SPP
+    samples, each on sponza_proxy as registered and lit. Its [scene] ...
+    [out] lines go to this script's output."""
+    import torch
+    from cse168_raytracer_tpu_torch import cli
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    from cse168_raytracer_tpu_torch.scenes import registry
+    registry.SCENES["sponza_proxy_lit"] = lit_scene_builder()
+    runs = {}
+    for k in wb.LAUNCHES:
+        wb.LAUNCHES[k] = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for scene in ("sponza_proxy", "sponza_proxy_lit"):
+            for label, extra in (("a", []), ("b", [
+                    "--path-tracing", "--dof", "--spp", str(SPP)])):
+                report = {}
+                out = os.path.join(tmp, f"{scene}_{label}.png")
+                argv = ["render", "--scene", scene, "--width", str(RES),
+                        "--height", str(RES), "--depth", str(DEPTH),
+                        "--stats", "--out", out] + extra
+                log("[8 cli] python -m cse168_raytracer_tpu_torch.cli "
+                    + " ".join(x for x in argv if x not in ("--out", out)))
+                with contextlib.redirect_stderr(sys.stdout):
+                    rc = cli.main(argv, report=report)
+                if rc != 0 or not os.path.getsize(out):
+                    raise AssertionError(f"cli {scene} ({label}): exit {rc}")
+                hdr, st = report["hdr"], report["stats"]
+                if hdr.shape != (RES, RES, 3) or not bool(
+                        torch.isfinite(hdr).all()):
+                    raise AssertionError(f"cli {scene} ({label}): image")
+                if scene.endswith("lit") and not bool(hdr.max() > hdr.min()):
+                    raise AssertionError(f"cli {scene} ({label}): constant")
+                if int(st.box_tests) <= 0 or int(st.tri_tests) <= 0:
+                    raise AssertionError(f"cli {scene} ({label}): counters")
+                ms = report["steady_s"] * 1e3
+                rays = report["rays"]
+                runs[(scene, label)] = {
+                    "ms": ms, "ms_per_sample": ms / report["samples"],
+                    "rays": rays, "rays_s": rays / report["steady_s"],
+                    "box_per_ray": int(st.box_tests) / rays,
+                    "tri_per_ray": int(st.tri_tests) / rays}
+                r = runs[(scene, label)]
+                log(f"[8 cli] {scene} ({label}): {ms:.3f} ms per render "
+                    f"({r['ms_per_sample']:.3f} ms/sample), {rays} rays, "
+                    f"{r['rays_s']:.1f} rays/s, {r['box_per_ray']:.3f} box "
+                    f"and {r['tri_per_ray']:.3f} triangle tests per ray; "
+                    f"image mean {float(hdr.mean()):.6g}; card {card}")
+    del registry.SCENES["sponza_proxy_lit"]
+    launches = dict(wb.LAUNCHES)
+    log(f"[8 cli] kernel launches over the four renders: {launches}")
+    for k in ("stats_closest", "stats_any"):
+        if launches[k] < 1:
+            raise AssertionError(f"the command line launched no {k} kernel")
+    return runs, launches
 
 
 def main():
     device, card = phase_device()
     build_s = phase_build()
-    errs = phase_kernel_vs_twin(device)
+    errs, k3_cases = phase_kernel_vs_twin(device)
+    # phase 7 runs on phase 3's trees while they are on the card; they
+    # are freed before phase 4 measures the step's peak memory
+    phase_k3(k3_cases, errs)
+    del k3_cases
     main_run = phase_main_path(device)
     phase_card_vs_cpu(device)
     timing = phase_plain_timing(device, main_run, errs)
+    cli_runs, cli_launches = phase_cli(card)
     import torch
     src = "cse168_raytracer_tpu_torch/csrc/traverse_wide.cu"
     replaces = "cse168_raytracer_tpu/ops/pallas_bvh.py:1056"
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "rays", "plain_rays")
     kernels = [
         {"name": "traverse_wide closest+attr (W=4 and W=8)", "route": "cuda",
          "source": src, "replaces": replaces,
          "launches": main_run["launches"]["closest"],
-         "max_abs_err": errs["closest"], **timing["closest"]},
+         "max_abs_err": errs["closest"], "library_ms": None,
+         **{k: timing["closest"][k] for k in keys}},
         {"name": "traverse_wide any-hit (W=4 and W=8)", "route": "cuda",
          "source": src, "replaces": replaces,
          "launches": main_run["launches"]["any"],
-         "max_abs_err": errs["any"], **timing["any"]},
+         "max_abs_err": errs["any"], "library_ms": None,
+         **{k: timing["any"][k] for k in keys}},
+        {"name": "traverse_wide with counters, closest+attr and any-hit "
+                 "(K3)", "route": "cuda", "source": src,
+         "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:1020",
+         "launches": (cli_launches["stats_closest"]
+                      + cli_launches["stats_any"]),
+         "max_abs_err": errs["stats"], "library_ms": None,
+         **timing["stats"]},
     ]
+    a, b = (cli_runs[("sponza_proxy", x)] for x in ("a", "b"))
     log(f"[summary] main path "
         f"{main_run['registered']['ms']:.3f} ms/step as registered, "
-        f"{main_run['lit']['ms']:.3f} ms/step lit; card {card}")
+        f"{main_run['lit']['ms']:.3f} ms/step lit; cli render (a) "
+        f"{a['ms']:.3f} ms, (b) {b['ms_per_sample']:.3f} ms/sample; "
+        f"card {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

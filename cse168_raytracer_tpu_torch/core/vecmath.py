@@ -8,6 +8,8 @@ optics reproduce the reference's semantics exactly:
   mirror direction)
 - fresnel: Ray.h:168-200 (s-polarized only, including the reference's
   omission of the n2 factor on the sqrt term)
+- tangent frames: Utility.h:25-31 (getTangents) and
+  alignHemisphereToVector (Utility.h:34-50), unnormalized as there
 
 Dot and cross products, norms and integer powers are written as single
 IEEE operations (products, sums, one division, one square root) in a
@@ -64,6 +66,51 @@ def normalize(a: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
 
 def safe_normalize(a: torch.Tensor) -> torch.Tensor:
     return normalize(a, eps=1e-30)
+
+
+def _axis(like: torch.Tensor, i: int) -> torch.Tensor:
+    """The unit vector along axis i, broadcast to `like`'s shape."""
+    e = like.new_zeros(3)
+    e[i] = 1.0
+    return e.expand(like.shape)
+
+
+def get_tangents(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two tangents of n as Utility.h:25-31 builds them: t1 = z x n, or
+    y x n where that is degenerate, and t2 = t1 x n. Not normalized, as
+    in the reference (see onb for an orthonormal frame)."""
+    t1a = cross(_axis(n, 2), n)
+    t1 = torch.where((dot(t1a, t1a) < 1e-6)[..., None],
+                     cross(_axis(n, 1), n), t1a)
+    return t1, cross(t1, n)
+
+
+def onb(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Orthonormal tangents (t1, t2) completing the unit normal n."""
+    t1, t2 = get_tangents(n)
+    return safe_normalize(t1), safe_normalize(t2)
+
+
+def align_hemisphere(v: torch.Tensor, theta: torch.Tensor,
+                     phi: torch.Tensor) -> torch.Tensor:
+    """The direction at azimuth theta and polar angle phi about axis v,
+    as alignHemisphereToVector (Utility.h:34-50) computes it, with its
+    UNNORMALIZED tangent frame: t1 = z x v has length |v| sin(v, z) and
+    t2 = t1 x v length |t1| |v|, so the tangential part is scaled by
+    sin(v, z) before the final normalize and the lobe is squeezed toward
+    v. That warp is kept on purpose (JAX core/vecmath.py:90-104): with
+    a normalized frame the JAX package's photon maps stored 21% too much
+    energy against the reference, which applies the same warp to every
+    diffuse bounce and Phong lobe and never divides by the pdf.
+    sin and cos are the library's own (they may differ by an ulp between
+    the CPU and the card); the products and sums are single IEEE
+    operations in a fixed order."""
+    t1, t2 = get_tangents(v)
+    sp = torch.sin(phi)[..., None]
+    u1 = sp * torch.cos(theta)[..., None]
+    u2 = sp * torch.sin(theta)[..., None]
+    u3 = torch.cos(phi)[..., None]
+    return safe_normalize(u1 * t1 + u2 * t2 + u3 * v)
 
 
 def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,13 @@
 // Replaces the Pallas TPU kernel cse168_raytracer_tpu/ops/pallas_bvh.py::
 // _traverse4_one (launched from pallas_bvh_closest_hit_triangles) in its
 // closest-hit-with-attributes and any-hit modes, for W = 4 and W = 8
-// trees. It reads the JAX package's tree arrays byte for byte:
+// trees, and its with_stats mode (the -DSTATS counters): with STATS the
+// walk also writes each ray's internal-node and leaf visit counts. The
+// TPU kernel counts the visits of a 256-ray tile and bills them to every
+// ray in it; here one thread walks one ray, so a count is that ray's own
+// walk. The counters are registers written once, and the STATS=false
+// instantiations carry none of them. It reads the JAX package's tree
+// arrays byte for byte:
 //   cbox  (N, 8W) f32, plane-grouped: lo_x[W] lo_y[W] lo_z[W]
 //         hi_x[W] hi_y[W] hi_z[W] pad[2W]; empty slots are degenerate
 //         boxes at 1e30 linked to leaf 0 (the slab test rejects them);
@@ -130,12 +136,18 @@ HD float shade_leaf(const float* lw, const Ray& r, float curmax, int* lane) {
   return lt;
 }
 
+// Visit counts of one walk (STATS).
+struct Visits {
+  int internal = 0, leaf = 0;
+};
+
 // Walk the tree for one ray. `stack` holds this ray's slots at a stride
 // of `stride` ints. Returns the best t (BIG on a miss) and its id; any-hit
-// returns at the first accepted triangle.
-template <int W, bool ANY_HIT>
+// returns at the first accepted triangle. With STATS, `vis` counts the
+// internal nodes and leaves this walk visits.
+template <int W, bool ANY_HIT, bool STATS>
 HD float walk(const Tree& tree, const Ray& r, int* stack, long stride,
-              int stack_depth, int* best_id, int* err) {
+              int stack_depth, int* best_id, int* err, Visits* vis) {
   float best = BIG;
   *best_id = 0;
   if (!(r.tmax >= r.tmin)) return best;  // dead and padded lanes
@@ -149,6 +161,7 @@ HD float walk(const Tree& tree, const Ray& r, int* stack, long stride,
         *err |= ERR_LINK;
         return best;
       }
+      if (STATS) ++vis->internal;
       const float curmax = fminf(r.tmax, best);
       const float* cb = tree.cbox + (long)node * 8 * W;
       for (int i = 0; i < W; ++i) {
@@ -159,11 +172,15 @@ HD float walk(const Tree& tree, const Ray& r, int* stack, long stride,
           // BOX_PAD of its own extent; without that the walk misses hits
           // that lie just past a shared edge, which the brute force finds.
           // An empty slot has zero extent and stays a degenerate point.
+          // (the intrinsics keep nvcc from fusing these into a multiply-
+          // add, so the visits equal the plain walk's in ops/wide_bvh.py)
           const float lo = LDG(cb + a * W + i);
           const float hi = LDG(cb + 3 * W + a * W + i);
-          const float pad = (hi - lo) * BOX_PAD;
-          const float ta = (lo - pad - r.o[a]) * r.rcp[a];
-          const float tb = (hi + pad - r.o[a]) * r.rcp[a];
+          const float pad = __fmul_rn(__fsub_rn(hi, lo), BOX_PAD);
+          const float ta =
+              __fmul_rn(__fsub_rn(__fsub_rn(lo, pad), r.o[a]), r.rcp[a]);
+          const float tb =
+              __fmul_rn(__fsub_rn(__fadd_rn(hi, pad), r.o[a]), r.rcp[a]);
           // 0*inf is NaN: that axis must not constrain the interval
           ent = fmaxf(ent, fminf(slab_near(ta), slab_near(tb)));
           ext = fminf(ext, fmaxf(slab_far(ta), slab_far(tb)));
@@ -182,6 +199,7 @@ HD float walk(const Tree& tree, const Ray& r, int* stack, long stride,
         *err |= ERR_LINK;
         return best;
       }
+      if (STATS) ++vis->leaf;
       int lane;
       const float* lw = tree.leafW + (long)leaf * 16 * 4 * K;
       const float lt = shade_leaf(lw, r, fminf(r.tmax, best), &lane);
@@ -225,55 +243,79 @@ HD void gather_attr(const Tree& tree, float best, int id, float* out) {
   }
 }
 
-template <int W, bool ANY_HIT>
+// Outputs of a launch; out_id and out_attr are unused by any-hit,
+// out_nv and out_lv (the visit counts) unless STATS.
+struct Out {
+  float* t;
+  int* id;
+  float* attr;
+  int* nv;
+  int* lv;
+};
+
+template <int W, bool ANY_HIT, bool STATS>
 HD void trace_one(const Tree& tree, const float* o, const float* d,
                   const float* tmin, const float* tmax, long i, long n,
-                  int* stack, int stack_depth, float* out_t, int* out_id,
-                  float* out_attr, int* err) {
+                  int* stack, int stack_depth, const Out& out, int* err) {
   const Ray r = load_ray(o, d, tmin, tmax, i);
   int id;
-  const float best =
-      walk<W, ANY_HIT>(tree, r, stack + i, n, stack_depth, &id, err);
-  out_t[i] = best;
+  Visits vis;
+  const float best = walk<W, ANY_HIT, STATS>(tree, r, stack + i, n,
+                                             stack_depth, &id, err, &vis);
+  out.t[i] = best;
   if (!ANY_HIT) {
-    out_id[i] = id;
-    gather_attr(tree, best, id, out_attr + 32 * i);
+    out.id[i] = id;
+    gather_attr(tree, best, id, out.attr + 32 * i);
+  }
+  if (STATS) {
+    out.nv[i] = vis.internal;
+    out.lv[i] = vis.leaf;
   }
 }
 
 #ifdef __CUDACC__
 
-template <int W, bool ANY_HIT>
+template <int W, bool ANY_HIT, bool STATS>
 __global__ void __launch_bounds__(128)
     traverse_kernel(Tree tree, const float* __restrict__ o,
                     const float* __restrict__ d,
                     const float* __restrict__ tmin,
                     const float* __restrict__ tmax, int n, int* stack,
-                    int stack_depth, float* out_t, int* out_id,
-                    float* out_attr, int* err) {
+                    int stack_depth, Out out, int* err) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   int e = 0;
-  trace_one<W, ANY_HIT>(tree, o, d, tmin, tmax, i, n, stack, stack_depth,
-                        out_t, out_id, out_attr, &e);
+  trace_one<W, ANY_HIT, STATS>(tree, o, d, tmin, tmax, i, n, stack,
+                               stack_depth, out, &e);
   if (e) atomicOr(err, e);
+}
+
+template <int W, bool ANY_HIT>
+void launch_w(Tree tree, const float* o, const float* d, const float* tmin,
+              const float* tmax, int n, int* stack, int stack_depth,
+              const Out& out, int* err, cudaStream_t stream) {
+  const int threads = 128;  // one 16x8 pixel block of rays
+  const int blocks = (n + threads - 1) / threads;
+  if (out.nv)
+    traverse_kernel<W, ANY_HIT, true><<<blocks, threads, 0, stream>>>(
+        tree, o, d, tmin, tmax, n, stack, stack_depth, out, err);
+  else
+    traverse_kernel<W, ANY_HIT, false><<<blocks, threads, 0, stream>>>(
+        tree, o, d, tmin, tmax, n, stack, stack_depth, out, err);
 }
 
 template <bool ANY_HIT>
 int launch(int width, Tree tree, const float* o, const float* d,
            const float* tmin, const float* tmax, int n, int* stack,
-           int stack_depth, float* out_t, int* out_id, float* out_attr,
-           int* err, cudaStream_t stream) {
-  const int threads = 128;  // one 16x8 pixel block of rays
-  const int blocks = (n + threads - 1) / threads;
+           int stack_depth, const Out& out, int* err, cudaStream_t stream) {
+  if ((out.nv == nullptr) != (out.lv == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (width == 4)
-    traverse_kernel<4, ANY_HIT><<<blocks, threads, 0, stream>>>(
-        tree, o, d, tmin, tmax, n, stack, stack_depth, out_t, out_id,
-        out_attr, err);
+    launch_w<4, ANY_HIT>(tree, o, d, tmin, tmax, n, stack, stack_depth, out,
+                         err, stream);
   else if (width == 8)
-    traverse_kernel<8, ANY_HIT><<<blocks, threads, 0, stream>>>(
-        tree, o, d, tmin, tmax, n, stack, stack_depth, out_t, out_id,
-        out_attr, err);
+    launch_w<8, ANY_HIT>(tree, o, d, tmin, tmax, n, stack, stack_depth, out,
+                         err, stream);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -287,21 +329,25 @@ int launch(int width, Tree tree, const float* o, const float* d,
 
 // Closest hit with the winner's attribute row. Outputs: out_t (n,) f32
 // (BIG on a miss), out_id (n,) i32 = leaf*K + lane (0 on a miss),
-// out_attr (n, 32) f32 (zeros on a miss). `stack` is (stack_depth, n)
-// i32 scratch; `err` one i32 that the wrapper zeroes and reads back.
-// Returns cudaGetLastError() after the launch.
+// out_attr (n, 32) f32 (zeros on a miss), and, when out_nv and out_lv
+// are not null, each ray's internal-node and leaf visits (n,) i32 (the
+// STATS kernel; both null runs the kernel without counters). `stack` is
+// (stack_depth, n) i32 scratch; `err` one i32 that the wrapper zeroes
+// and reads back. Returns cudaGetLastError() after the launch.
 extern "C" int traverse_closest_attr(
     int width, const void* o, const void* d, const void* tmin,
     const void* tmax, int n, const void* cbox, const void* links,
     const void* leafW, const void* attrA, int n_nodes, int n_leaves,
     void* stack, int stack_depth, void* out_t, void* out_id, void* out_attr,
-    void* err, void* stream) {
+    void* out_nv, void* out_lv, void* err, void* stream) {
   const Tree tree{(const float*)cbox, (const int*)links, (const float*)leafW,
                   (const float*)attrA, n_nodes, n_leaves};
+  const Out out{(float*)out_t, (int*)out_id, (float*)out_attr, (int*)out_nv,
+                (int*)out_lv};
   return launch<false>(width, tree, (const float*)o, (const float*)d,
                        (const float*)tmin, (const float*)tmax, n,
-                       (int*)stack, stack_depth, (float*)out_t, (int*)out_id,
-                       (float*)out_attr, (int*)err, (cudaStream_t)stream);
+                       (int*)stack, stack_depth, out, (int*)err,
+                       (cudaStream_t)stream);
 }
 
 // Any hit: out_t < BIG marks an occluded ray. Same conventions.
@@ -310,43 +356,59 @@ extern "C" int traverse_any(int width, const void* o, const void* d,
                             const void* cbox, const void* links,
                             const void* leafW, int n_nodes, int n_leaves,
                             void* stack, int stack_depth, void* out_t,
-                            void* err, void* stream) {
+                            void* out_nv, void* out_lv, void* err,
+                            void* stream) {
   const Tree tree{(const float*)cbox, (const int*)links, (const float*)leafW,
                   nullptr, n_nodes, n_leaves};
+  const Out out{(float*)out_t, nullptr, nullptr, (int*)out_nv, (int*)out_lv};
   return launch<true>(width, tree, (const float*)o, (const float*)d,
                       (const float*)tmin, (const float*)tmax, n, (int*)stack,
-                      stack_depth, (float*)out_t, nullptr, nullptr,
-                      (int*)err, (cudaStream_t)stream);
+                      stack_depth, out, (int*)err, (cudaStream_t)stream);
 }
 
 #else  // host build
 
+template <int W, bool ANY_HIT>
+void host_rays(const Tree& tree, const float* o, const float* d,
+               const float* tmin, const float* tmax, int n, int* stack,
+               int stack_depth, const Out& out, int* err) {
+  for (long i = 0; i < n; ++i) {
+    if (out.nv)
+      trace_one<W, ANY_HIT, true>(tree, o, d, tmin, tmax, i, n, stack,
+                                  stack_depth, out, err);
+    else
+      trace_one<W, ANY_HIT, false>(tree, o, d, tmin, tmax, i, n, stack,
+                                   stack_depth, out, err);
+  }
+}
+
 // The same walk on the host, one ray after another, for the CPU tests.
 // Arguments as traverse_closest_attr; any_hit selects the mode (then
-// out_id and out_attr are unused). Returns the error bits.
+// out_id and out_attr are unused); out_nv and out_lv may be null.
+// Returns the error bits.
 extern "C" int traverse_host(int width, int any_hit, const float* o,
                              const float* d, const float* tmin,
                              const float* tmax, int n, const float* cbox,
                              const int* links, const float* leafW,
                              const float* attrA, int n_nodes, int n_leaves,
                              int* stack, int stack_depth, float* out_t,
-                             int* out_id, float* out_attr) {
+                             int* out_id, float* out_attr, int* out_nv,
+                             int* out_lv) {
   const Tree tree{cbox, links, leafW, attrA, n_nodes, n_leaves};
+  const Out out{out_t, out_id, out_attr, out_nv, out_lv};
   int err = 0;
-  for (long i = 0; i < n; ++i) {
-    if (width == 4 && any_hit)
-      trace_one<4, true>(tree, o, d, tmin, tmax, i, n, stack, stack_depth,
-                         out_t, out_id, out_attr, &err);
-    else if (width == 4)
-      trace_one<4, false>(tree, o, d, tmin, tmax, i, n, stack, stack_depth,
-                          out_t, out_id, out_attr, &err);
-    else if (any_hit)
-      trace_one<8, true>(tree, o, d, tmin, tmax, i, n, stack, stack_depth,
-                         out_t, out_id, out_attr, &err);
-    else
-      trace_one<8, false>(tree, o, d, tmin, tmax, i, n, stack, stack_depth,
-                          out_t, out_id, out_attr, &err);
-  }
+  if (width == 4 && any_hit)
+    host_rays<4, true>(tree, o, d, tmin, tmax, n, stack, stack_depth, out,
+                       &err);
+  else if (width == 4)
+    host_rays<4, false>(tree, o, d, tmin, tmax, n, stack, stack_depth, out,
+                        &err);
+  else if (any_hit)
+    host_rays<8, true>(tree, o, d, tmin, tmax, n, stack, stack_depth, out,
+                       &err);
+  else
+    host_rays<8, false>(tree, o, d, tmin, tmax, n, stack, stack_depth, out,
+                        &err);
   return err;
 }
 

@@ -52,22 +52,32 @@ def _check_accel(accel):
 
 
 def scene_closest_hit(accel, spheres, planes, o, d, tmin=0.0,
-                      tmax=MIRO_TMAX):
+                      tmax=MIRO_TMAX, with_stats: bool = False):
     """Scene::trace with the tree (Scene.cpp:214-231): triangles through
     the traversal, then spheres and planes. Returns (Hit, attr), attr
-    being the (N, 32) rows of the triangle winners."""
+    being the (N, 32) rows of the triangle winners; with_stats appends
+    the traversal's per-ray box and triangle tests (N,) int32 (JAX
+    ops/accel.py:247-283: spheres and planes are not counted)."""
     _check_accel(accel)
-    t, ids, attr = closest_hit_triangles(accel, o, d, tmin, tmax)
+    t, ids, attr, *tests = closest_hit_triangles(accel, o, d, tmin, tmax,
+                                                 with_stats)
     h = _hit(t, ids, PRIM_TRI)
     h = _merge(h, intersect_spheres(spheres, o, d, tmin, tmax))
     h = _merge(h, intersect_planes(planes, o, d, tmin, tmax))
-    return h, attr
+    return (h, attr, *tests)
 
 
-def scene_any_hit(accel, spheres, planes, o, d, tmin=0.0, tmax=MIRO_TMAX):
-    """Boolean shadow occlusion across all primitive pools."""
+def scene_any_hit(accel, spheres, planes, o, d, tmin=0.0, tmax=MIRO_TMAX,
+                  with_stats: bool = False):
+    """Boolean shadow occlusion across all primitive pools; with_stats
+    (occluded, box tests, triangle tests) as scene_closest_hit counts
+    them (JAX ops/accel.py:414-449)."""
     _check_accel(accel)
-    occ = any_hit_triangles(accel, o, d, tmin, tmax) < _BIG
+    if with_stats:
+        t, box, tri = any_hit_triangles(accel, o, d, tmin, tmax, True)
+    else:
+        t = any_hit_triangles(accel, o, d, tmin, tmax)
+    occ = t < _BIG
     occ = occ | intersect_spheres(spheres, o, d, tmin, tmax).hit
-    return occ | intersect_planes(planes, o, d, tmin, tmax).hit
-
+    occ = occ | intersect_planes(planes, o, d, tmin, tmax).hit
+    return (occ, box, tri) if with_stats else occ

@@ -1,9 +1,16 @@
 """Binned-SAH BVH build on the host.
 
 Counterpart of cse168_raytracer_tpu/ops/sah.py:33-191: a ctypes bridge
-to the native builder in the repository's shared csrc/bvh_builder.cpp
-(built with `make -C csrc` when the library is absent), plus the numpy
-builder with the same output contract. Output:
+to the native builder in the repository's shared csrc/bvh_builder.cpp,
+plus the numpy builder with the same output contract.
+
+The port builds its own copy of the library, from csrc's sources with
+csrc/Makefile's flags, into _build/miniro-<hash>/libminiro.so. It does
+not load csrc/libminiro.so: the JAX package's OBJ loader writes that
+file from objloader.cpp alone when it is absent, and a process that has
+once loaded a file at some path gets that same handle back from every
+later load of the path, even after the file was rebuilt. A private path
+keyed on the sources is loaded once and never rewritten. Output:
 
   * a re-ordered pack whose rows are leaf blocks of `leaf_cap`
     contiguous triangles, short leaves padded with degenerate rows;
@@ -19,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import hashlib
 import os
 import subprocess
 import sys
@@ -32,32 +40,44 @@ from cse168_raytracer_tpu_torch.models.geometry import (TrianglePack,
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _CSRC = os.path.join(_REPO, "csrc")
-_LOCK = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "_build", "miniro.lock")
+_BUILD = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "_build")
+_SOURCES = ("objloader.cpp", "bvh_builder.cpp")
+_CXXFLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 
 _lib = None
 
 
+def native_library_path() -> str:
+    """Build csrc's sources into the port's own libminiro.so (once per
+    content) and return its path. Raises OSError or CalledProcessError
+    when the build fails."""
+    digest = hashlib.sha256(" ".join(_CXXFLAGS).encode())
+    for name in _SOURCES:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            digest.update(f.read())
+    out_dir = os.path.join(_BUILD, "miniro-" + digest.hexdigest()[:16])
+    so = os.path.join(out_dir, "libminiro.so")
+    os.makedirs(out_dir, exist_ok=True)
+    # one builder at a time: test workers may all arrive here at once
+    with open(os.path.join(out_dir, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(so):
+            tmp = so + f".{os.getpid()}.tmp"
+            subprocess.run(["g++", *_CXXFLAGS,
+                            *(os.path.join(_CSRC, s) for s in _SOURCES),
+                            "-o", tmp], check=True, capture_output=True)
+            os.replace(tmp, so)
+    return so
+
+
 def load_native():
-    """Load csrc/libminiro.so, building it first when absent or stale.
+    """Load the native SAH builder, building it first when absent.
     Raises OSError or CalledProcessError when that fails."""
     global _lib
     if _lib is not None:
         return _lib
-    so = os.path.join(_CSRC, "libminiro.so")
-    os.makedirs(os.path.dirname(_LOCK), exist_ok=True)
-    # one builder at a time: test workers may all arrive here at once
-    with open(_LOCK, "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not os.path.exists(so):
-            subprocess.run(["make", "-C", _CSRC], check=True,
-                           capture_output=True)
-        lib = ctypes.CDLL(so)
-        if not hasattr(lib, "bvh_build"):
-            # a stale library from before bvh_builder.cpp joined the build
-            subprocess.run(["make", "-C", _CSRC, "clean", "all"],
-                           check=True, capture_output=True)
-            lib = ctypes.CDLL(so)
+    lib = ctypes.CDLL(native_library_path())
     lib.bvh_build.restype = ctypes.c_void_p
     lib.bvh_build.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int32] * 2
     for name in ("bvh_num_nodes", "bvh_num_leaves", "bvh_max_depth"):

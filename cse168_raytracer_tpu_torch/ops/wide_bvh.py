@@ -9,11 +9,26 @@ Traversal (`closest_hit_triangles`, `any_hit_triangles`) runs the
 hand-written CUDA kernel csrc/traverse_wide.cu on CUDA tensors; it
 replaces the Pallas kernel `_traverse4_one` in its closest-hit-with-
 attributes and any-hit modes, for both the W=4 tree and the W=8 tree of
-scenes above 300k triangles. On CPU tensors the same entry points run
-the plain PyTorch twin, a chunked brute force over the leaf table with
-the same acceptance rule, first-lane ties and attribute gather. For a
-CUDA tensor a wrapper launches the kernel or raises; it never falls
-back to the twin.
+scenes above 300k triangles, and in its with_stats mode (kernel K3:
+`with_stats=True` also returns per-ray box and triangle tests, W times
+the internal-node visits and K times the leaf visits, as
+pallas_bvh.py:569-574 scales them). On CPU tensors the same entry
+points run a plain PyTorch version: without counters the twin, a
+chunked brute force over the leaf table with the same acceptance rule,
+first-lane ties and attribute gather; with counters `walk_plain`, the
+kernel's own walk vectorized over rays. For a CUDA tensor a wrapper
+launches the kernel or raises; it never falls back to a plain version.
+
+The counters differ from the TPU kernel's on purpose:
+1. they are per ray: the TPU kernel counts the visits of a 256-ray tile
+   and bills them to every ray of the tile, where here one thread walks
+   one ray;
+2. the walk widens each slot by BOX_PAD of its extent (the acceptance
+   rule reaches 2*EPSILON past a triangle), which can add visits;
+3. the TPU's any-hit retires a ray one internal visit late
+   (pallas_bvh.py:1145-1153: the exit rides on the next internal
+   visit's scalar sync), where this walk stops at the first accepted
+   leaf.
 
 Traversal inputs are detached: hits are discrete selections, and the
 winner's continuous quantities are recomputed differentiably in
@@ -38,9 +53,10 @@ from cse168_raytracer_tpu_torch.ops.intersect import _BIG, _DEN_TINY
 
 K = 128          # triangles per leaf
 _FAR = 1.0e30    # empty-slot box (a degenerate point the slab test rejects)
+BOX_PAD = 1e-3   # slot widening, traverse_wide.cu's BOX_PAD
 
 # kernel launches by mode, counted where the wrapper launches the kernel
-LAUNCHES = {"closest": 0, "any": 0}
+LAUNCHES = {"closest": 0, "any": 0, "stats_closest": 0, "stats_any": 0}
 
 
 @dataclasses.dataclass
@@ -268,6 +284,33 @@ def _chunk_sizes(n_leaves: int, device) -> tuple[int, int]:
     return rays, leaves
 
 
+def _lane_t(lw, r6, o3, tmin, tmax):
+    """traverse_wide.cu's shade_leaf arithmetic for the K lanes of leaf
+    operand rows lw (..., >= 10, 4K): t where the lane's triangle accepts
+    the ray with t in [tmin, tmax], _BIG elsewhere. r6 (direction and
+    moment) and o3 (origin) hold the ray's components, and tmin and tmax
+    its bounds, each shaped to broadcast against lw[..., 0, :K]."""
+    def sum6(c):
+        acc = lw[..., 0, c:c + K] * r6[0]
+        for r in range(1, 6):
+            acc = acc + lw[..., r, c:c + K] * r6[r]
+        return acc
+
+    b, g, den = sum6(0), sum6(K), sum6(2 * K)
+    tc = slice(3 * K, 4 * K)
+    tn = lw[..., 6, tc] * o3[0]
+    tn = tn + lw[..., 7, tc] * o3[1]
+    tn = tn + lw[..., 8, tc] * o3[2]
+    tn = tn + lw[..., 9, tc]
+    tiny = den.abs() < _DEN_TINY
+    inv = 1.0 / torch.where(tiny, 1.0, den)
+    beta, gamma, tt = b * inv, g * inv, tn * inv
+    ok = ((beta >= -EPSILON) & (gamma >= -EPSILON)
+          & (beta + gamma <= 1.0 + EPSILON) & (tt >= tmin) & (tt <= tmax)
+          & ~tiny)
+    return torch.where(ok, tt, _BIG)
+
+
 @torch.no_grad()
 def _plain_walk(bvh: WideBVH, o, d, tmin, tmax):
     """Brute force over every leaf: nearest accepted triangle per ray
@@ -293,34 +336,107 @@ def _plain_walk(bvh: WideBVH, o, d, tmin, tmax):
         bt = torch.full((lt_all[rs].shape[0],), _BIG, device=o.device)
         bid = torch.zeros_like(bt, dtype=torch.int64)
         for l0 in range(0, n_leaves, leaves_c):
-            blk = lw[l0:l0 + leaves_c]                  # (Lc, 16, 4K)
-
-            def sum6(c0):
-                acc = blk[None, :, 0, c0:c0 + K] * col(r6[0])
-                for r in range(1, 6):
-                    acc = acc + blk[None, :, r, c0:c0 + K] * col(r6[r])
-                return acc                              # (R, Lc, K)
-
-            b, g, den = sum6(0), sum6(K), sum6(2 * K)
-            tc = slice(3 * K, 4 * K)
-            tn = blk[None, :, 6, tc] * col(o[:, 0])
-            tn = tn + blk[None, :, 7, tc] * col(o[:, 1])
-            tn = tn + blk[None, :, 8, tc] * col(o[:, 2])
-            tn = tn + blk[None, :, 9, tc]
-            tiny = den.abs() < _DEN_TINY
-            inv = 1.0 / torch.where(tiny, 1.0, den)
-            beta, gamma, tt = b * inv, g * inv, tn * inv
-            ok = ((beta >= -EPSILON) & (gamma >= -EPSILON)
-                  & (beta + gamma <= 1.0 + EPSILON)
-                  & (tt >= col(tmin)) & (tt <= col(tmax)) & ~tiny)
-            tm = torch.where(ok, tt, _BIG).reshape(ok.shape[0], -1)
-            lt, lj = tm.min(1)
+            blk = lw[None, l0:l0 + leaves_c]            # (1, Lc, 16, 4K)
+            tm = _lane_t(blk, [col(x) for x in r6],     # (R, Lc, K)
+                         [col(o[:, a]) for a in range(3)], col(tmin),
+                         col(tmax))
+            lt, lj = tm.reshape(tm.shape[0], -1).min(1)
             better = lt < bt
             bt = torch.where(better, lt, bt)
             bid = torch.where(better, lj + l0 * K, bid)
         lt_all[rs], lid_all[rs] = bt, bid
     best_t[live], best_id[live] = lt_all, lid_all
     return best_t, best_id
+
+
+def _leaf_test(bvh: WideBVH, leaves, o, d, m, tmin, curmax):
+    """Nearest accepted lane of each ray's own leaf with t in [tmin,
+    curmax], as traverse_wide.cu's shade_leaf computes it (first lane on
+    ties). Returns (t, _BIG when none; lane)."""
+    lt = torch.empty_like(tmin)
+    lane = torch.empty_like(leaves)
+    budget = (1 << 26) if o.device.type == "cuda" else (1 << 22)
+    step = max(1, budget // (10 * 4 * K))
+    for c0 in range(0, leaves.shape[0], step):
+        cs = slice(c0, c0 + step)
+        col = lambda x: x[cs, None]
+        tm = _lane_t(bvh.leafW[leaves[cs], :10],          # (R, K)
+                     [col(d[:, a]) for a in range(3)]
+                     + [col(m[:, a]) for a in range(3)],
+                     [col(o[:, a]) for a in range(3)], col(tmin),
+                     col(curmax))
+        lt[cs], lane[cs] = tm.min(1)
+    return lt, lane
+
+
+@torch.no_grad()
+def walk_plain(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool = False):
+    """The kernel's walk in plain PyTorch, one stack per ray, every ray
+    advanced by one pop per step: the root first, internal slots pushed
+    in slot order when their BOX_PAD-widened slab test passes against
+    [tmin, min(tmax, best)], pops last-in first-out, each leaf tested
+    with the kernel's arithmetic, and an any-hit ray stopped at its
+    first accepted leaf. Returns (t (N,) f32, _BIG on a miss; id (N,)
+    int32; internal-node visits (N,) int32; leaf visits (N,) int32).
+    Dead rays (tmax < tmin) visit nothing."""
+    tmin, tmax = _bounds(o, tmin, tmax)
+    o, d = o.detach(), d.detach()
+    n, w, dev = o.shape[0], bvh.width, o.device
+    rcp = 1.0 / d
+    m = cross(o, d)
+    lo_hi = bvh.cbox.view(bvh.n_nodes, 8, w)[:, :6]   # (N, 6, W) planes
+    links = bvh.links.view(bvh.n_nodes, w).to(torch.int64)
+    best = torch.full((n,), _BIG, device=dev)
+    best_id = torch.zeros((n,), dtype=torch.int64, device=dev)
+    n_int = torch.zeros((n,), dtype=torch.int32, device=dev)
+    n_leaf = torch.zeros((n,), dtype=torch.int32, device=dev)
+    stack = torch.zeros((n, bvh.stack_depth), dtype=torch.int64, device=dev)
+    sp = (tmax >= tmin).to(torch.int64)
+    nan_to = lambda x, v: torch.where(torch.isnan(x), v, x)
+    while True:
+        act = torch.nonzero(sp > 0)[:, 0]
+        if act.numel() == 0:
+            break
+        sp[act] -= 1
+        node = stack[act, sp[act]]
+        inner = node >= 0
+
+        ia, nodes = act[inner], node[inner]
+        if ia.numel():
+            n_int[ia] += 1
+            lo, hi = lo_hi[nodes, 0:3], lo_hi[nodes, 3:6]  # (M, 3, W)
+            pad = (hi - lo) * BOX_PAD
+            oo, rr = o[ia][:, :, None], rcp[ia][:, :, None]
+            ta = ((lo - pad) - oo) * rr
+            tb = ((hi + pad) - oo) * rr
+            near = torch.minimum(nan_to(ta, -torch.inf), nan_to(tb, -torch.inf))
+            far = torch.maximum(nan_to(ta, torch.inf), nan_to(tb, torch.inf))
+            ent = tmin[ia, None]
+            ext = torch.minimum(tmax[ia], best[ia])[:, None]
+            for a in range(3):
+                ent = torch.maximum(ent, near[:, a])
+                ext = torch.minimum(ext, far[:, a])
+            push = ent <= ext                             # (M, W)
+            k = push.to(torch.int64)
+            top = sp[ia] + k.sum(1)
+            if bool((top > bvh.stack_depth).any()):
+                raise RuntimeError("walk_plain: stack overflow")
+            slot = sp[ia, None] + torch.cumsum(k, 1) - k
+            stack[ia[:, None].expand(-1, w)[push], slot[push]] = \
+                links[nodes][push]
+            sp[ia] = top
+
+        la, leaves = act[~inner], -node[~inner] - 1
+        if la.numel():
+            n_leaf[la] += 1
+            lt, lane = _leaf_test(bvh, leaves, o[la], d[la], m[la], tmin[la],
+                                  torch.minimum(tmax[la], best[la]))
+            better = lt < best[la]
+            best[la] = torch.where(better, lt, best[la])
+            best_id[la] = torch.where(better, leaves * K + lane, best_id[la])
+            if any_hit:
+                sp[la[better]] = 0
+    return best, best_id.to(torch.int32), n_int, n_leaf
 
 
 def _gather_attr(bvh: WideBVH, t, ids):
@@ -332,15 +448,33 @@ def _gather_attr(bvh: WideBVH, t, ids):
     return torch.where((t < _BIG)[:, None], attr, 0.0)
 
 
-def closest_hit_triangles_plain(bvh: WideBVH, o, d, tmin, tmax):
-    """Plain PyTorch twin of the closest-hit kernel: (t, id, attr)."""
+def _tests(bvh: WideBVH, n_int, n_leaf):
+    """Box and triangle tests from visit counts: W slab tests per
+    internal visit, K triangle tests per leaf visit."""
+    return bvh.width * n_int, K * n_leaf
+
+
+def closest_hit_triangles_plain(bvh: WideBVH, o, d, tmin, tmax,
+                                with_stats: bool = False):
+    """Plain PyTorch version of the closest-hit kernel: (t, id, attr),
+    and (box tests, triangle tests) per ray with_stats (by walk_plain;
+    without, the brute-force twin)."""
+    if with_stats:
+        t, ids, n_int, n_leaf = walk_plain(bvh, o, d, tmin, tmax)
+        return (t, ids, _gather_attr(bvh, t, ids.to(torch.int64)),
+                *_tests(bvh, n_int, n_leaf))
     tmin, tmax = _bounds(o, tmin, tmax)
     t, ids = _plain_walk(bvh, o.detach(), d.detach(), tmin, tmax)
     return t, ids.to(torch.int32), _gather_attr(bvh, t, ids)
 
 
-def any_hit_triangles_plain(bvh: WideBVH, o, d, tmin, tmax):
-    """Plain PyTorch twin of the any-hit kernel: t, < _BIG if occluded."""
+def any_hit_triangles_plain(bvh: WideBVH, o, d, tmin, tmax,
+                            with_stats: bool = False):
+    """Plain PyTorch version of the any-hit kernel: t, < _BIG if
+    occluded, and (box tests, triangle tests) per ray with_stats."""
+    if with_stats:
+        t, _, n_int, n_leaf = walk_plain(bvh, o, d, tmin, tmax, any_hit=True)
+        return (t, *_tests(bvh, n_int, n_leaf))
     tmin, tmax = _bounds(o, tmin, tmax)
     return _plain_walk(bvh, o.detach(), d.detach(), tmin, tmax)[0]
 
@@ -354,10 +488,11 @@ def _kernel_lib():
         lib = cuda_build.load_library("traverse_wide.cu")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.traverse_closest_attr.argtypes = [i, p, p, p, p, i, p, p, p, p,
-                                              i, i, p, i, p, p, p, p, p]
+                                              i, i, p, i, p, p, p, p, p, p,
+                                              p]
         lib.traverse_closest_attr.restype = i
         lib.traverse_any.argtypes = [i, p, p, p, p, i, p, p, p, i, i, p, i,
-                                     p, p, p]
+                                     p, p, p, p, p]
         lib.traverse_any.restype = i
         _lib = lib
     return _lib
@@ -388,45 +523,53 @@ def _check_inputs(bvh: WideBVH, o, d, tmin, tmax):
         raise ValueError("too many rays for one launch")
 
 
-def _launch(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool):
+def _launch(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
+            with_stats: bool = False):
+    """One launch; returns (t, id, attr, internal visits, leaf visits),
+    the entries a mode does not produce being None."""
     o = o.detach().contiguous()
     d = d.detach().contiguous()
     _check_inputs(bvh, o, d, tmin, tmax)
     n = o.shape[0]
+    i32 = dict(dtype=torch.int32, device=o.device)
     out_t = torch.empty((n,), dtype=torch.float32, device=o.device)
     out_id = out_attr = None
+    out_nv = torch.empty((n,), **i32) if with_stats else None
+    out_lv = torch.empty((n,), **i32) if with_stats else None
     if n == 0:
-        return out_t, torch.empty((0,), dtype=torch.int32, device=o.device), \
-            torch.empty((0, 32), dtype=torch.float32, device=o.device)
+        return (out_t, torch.empty((0,), **i32),
+                torch.empty((0, 32), dtype=torch.float32, device=o.device),
+                out_nv, out_lv)
     lib = _kernel_lib()
     stack = torch.empty((bvh.stack_depth * n,), dtype=torch.int32,
                         device=o.device)
     err = torch.zeros((1,), dtype=torch.int32, device=o.device)
     stream = torch.cuda.current_stream(o.device).cuda_stream
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
     common = [bvh.width, ptr(o), ptr(d), ptr(tmin), ptr(tmax), n,
               ptr(bvh.cbox), ptr(bvh.links), ptr(bvh.leafW)]
     if any_hit:
         rc = lib.traverse_any(*common, bvh.n_nodes, bvh.n_leaves,
                               ptr(stack), bvh.stack_depth, ptr(out_t),
-                              ptr(err), ctypes.c_void_p(stream))
+                              ptr(out_nv), ptr(out_lv), ptr(err),
+                              ctypes.c_void_p(stream))
         mode = "any"
     else:
-        out_id = torch.empty((n,), dtype=torch.int32, device=o.device)
+        out_id = torch.empty((n,), **i32)
         out_attr = torch.empty((n, 32), dtype=torch.float32, device=o.device)
         rc = lib.traverse_closest_attr(
             *common, ptr(bvh.attrA), bvh.n_nodes, bvh.n_leaves, ptr(stack),
             bvh.stack_depth, ptr(out_t), ptr(out_id), ptr(out_attr),
-            ptr(err), ctypes.c_void_p(stream))
+            ptr(out_nv), ptr(out_lv), ptr(err), ctypes.c_void_p(stream))
         mode = "closest"
     if rc != 0:
         raise RuntimeError(f"traverse_wide launch failed: CUDA error {rc}")
-    LAUNCHES[mode] += 1
+    LAUNCHES["stats_" + mode if with_stats else mode] += 1
     bits = int(err.item())
     if bits:
         raise RuntimeError(f"traverse_wide: {'stack overflow ' if bits & 1 else ''}"
                            f"{'bad link' if bits & 2 else ''} (error bits {bits})")
-    return out_t, out_id, out_attr
+    return out_t, out_id, out_attr, out_nv, out_lv
 
 
 def _route(o):
@@ -437,20 +580,32 @@ def _route(o):
     raise ValueError(f"no traversal for tensors on {o.device}")
 
 
-def closest_hit_triangles(bvh: WideBVH, o, d, tmin, tmax):
+def closest_hit_triangles(bvh: WideBVH, o, d, tmin, tmax,
+                          with_stats: bool = False):
     """Closest hit of N rays against the tree: (t (N,) f32, _BIG on a
     miss; id (N,) i32 = leaf*K + lane; attr (N, 32) f32 winner rows,
-    zeros on a miss)."""
+    zeros on a miss), and with_stats (box tests, triangle tests) (N,)
+    i32 per ray."""
     if not _route(o):
-        return closest_hit_triangles_plain(bvh, o, d, tmin, tmax)
+        return closest_hit_triangles_plain(bvh, o, d, tmin, tmax, with_stats)
     tmin, tmax = _bounds(o, tmin, tmax)
-    return _launch(bvh, o, d, tmin, tmax, any_hit=False)
+    t, ids, attr, n_int, n_leaf = _launch(bvh, o, d, tmin, tmax,
+                                          any_hit=False,
+                                          with_stats=with_stats)
+    if with_stats:
+        return (t, ids, attr, *_tests(bvh, n_int, n_leaf))
+    return t, ids, attr
 
 
-def any_hit_triangles(bvh: WideBVH, o, d, tmin, tmax):
+def any_hit_triangles(bvh: WideBVH, o, d, tmin, tmax,
+                      with_stats: bool = False):
     """Occlusion of N rays: t (N,) f32, < _BIG where some triangle lies
-    in [tmin, tmax]."""
+    in [tmin, tmax]; with_stats (t, box tests, triangle tests)."""
     if not _route(o):
-        return any_hit_triangles_plain(bvh, o, d, tmin, tmax)
+        return any_hit_triangles_plain(bvh, o, d, tmin, tmax, with_stats)
     tmin, tmax = _bounds(o, tmin, tmax)
-    return _launch(bvh, o, d, tmin, tmax, any_hit=True)[0]
+    t, _, _, n_int, n_leaf = _launch(bvh, o, d, tmin, tmax, any_hit=True,
+                                     with_stats=with_stats)
+    if with_stats:
+        return (t, *_tests(bvh, n_int, n_leaf))
+    return t

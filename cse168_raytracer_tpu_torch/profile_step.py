@@ -1,13 +1,16 @@
 """Where the time of one main-path step goes, on one NVIDIA GPU.
 
     python -m cse168_raytracer_tpu_torch.profile_step [--res 512] [--steps 3]
+        [--render]
 
 Builds sponza_proxy with its light inside the atrium (as chip_smoke.py's
 lit run), attaches the wide BVH and times fwd+bwd steps of
-sum(render_hdr) with respect to kd by CUDA events. Then it traces the
-same steps with torch.profiler and prints: the device's busy share of
-the traced wall time, the CUDA kernels by total device time, and the
-host-side operators by total CPU time. Fails without a CUDA device.
+sum(render_hdr) with respect to kd by CUDA events; with --render, the
+forward-only render with the traversal counters on, as `cli render
+--stats` runs it. Then it traces the same steps with torch.profiler and
+prints: the device's busy share of the traced wall time, the CUDA
+kernels by total device time, and the host-side operators by total CPU
+time. Fails without a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,6 +43,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--rows", type=int, default=25,
                     help="rows of each table")
+    ap.add_argument("--render", action="store_true",
+                    help="profile the forward-only render with counters "
+                         "(cli render --stats) instead of the fwd+bwd step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
@@ -52,16 +58,26 @@ def main(argv=None):
     scene = attach_accel(scene).replace(lights=make_light_table(
         [dict(kind=LIGHT_POINT, position=(0.0, 8.0, 0.0), color=(1, 1, 1),
               wattage=200.0)], dev))
-    step(scene, static, cam, cfg)
+    if args.render:
+        cfg = cfg.replace(collect_stats=True)
+
+        @torch.no_grad()
+        def work():
+            return render_hdr(scene, static, cam, cfg)[0]
+    else:
+        def work():
+            return step(scene, static, cam, cfg)
+    work()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(args.steps):
-        step(scene, static, cam, cfg)
+        work()
     end.record()
     torch.cuda.synchronize()
-    print(f"step {start.elapsed_time(end) / args.steps:.3f} ms "
+    print(f"{'render' if args.render else 'step'} "
+          f"{start.elapsed_time(end) / args.steps:.3f} ms "
           f"(CUDA events, mean of {args.steps})")
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -69,7 +85,7 @@ def main(argv=None):
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            step(scene, static, cam, cfg)
+            work()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events()

@@ -5,6 +5,10 @@ Counterpart of cse168_raytracer_tpu/scenes/registry.py:120,325,450,555,
 materials (citations inline). Ported so far: `sphere`, `test_sphere` and
 `sponza_proxy`, the scenes that need no reference assets; the OBJ-based
 scenes come with the OBJ loader (ROADMAP item A3).
+
+Every builder takes `device=None`, which means the card: without one it
+raises, and it never falls back to the CPU unasked. Callers that want
+the CPU pass device="cpu".
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from cse168_raytracer_tpu_torch.config import RenderConfig
 from cse168_raytracer_tpu_torch.models.geometry import (make_plane_pool,
@@ -29,6 +34,17 @@ from cse168_raytracer_tpu_torch.render.camera import make_camera
 CLOUD_PARAMS_A3 = (3.0, 0.1, 0.2, 50.0, 0.4, 0.35, 0.5, 0.3)  # main.cpp:33-41
 
 
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device; None means the card. Raises when the
+    card is asked for and there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card "
+                           "unless asked for the CPU (device='cpu', or "
+                           "--device cpu on the command line)")
+    return device
+
+
 def single_triangle(v1, v2, v3, n=(0, 1, 0)):
     """TriangleMesh::createSingleTriangle floor helper
     (assignment2.cpp:53-66)."""
@@ -42,11 +58,12 @@ def single_triangle(v1, v2, v3, n=(0, 1, 0)):
     }
 
 
-def scene_sphere(cfg: RenderConfig, device="cpu"):
+def scene_sphere(cfg: RenderConfig, device=None):
     """A1makeSphereScene (assignment1.cpp:383-430): Lambert(1) sphere --
     center (0,1,2) via the reference's Vector3 default-ctor quirk
     (Vector3.h:26-27) -- radius 1.5, floor triangle at y=-1.5, point
     light (-3,15,3) 500W."""
+    device = resolve_device(device)
     mb = MaterialBuilder()
     white = mb.phong(kd=(1, 1, 1))
     tris = pack_triangles([(single_triangle((0, -1.5, 10), (10, -1.5, -10),
@@ -188,11 +205,12 @@ def _make_sponza_proxy(target_tris: int = 160_000):
             "tri_tidx": np.full_like(f, -1)}
 
 
-def scene_sponza_proxy(cfg: RenderConfig, device="cpu"):
+def scene_sponza_proxy(cfg: RenderConfig, device=None):
     """`sponza_proxy`: the ~160k-triangle procedural atrium
     (_make_sponza_proxy) under makeSponzaScene's camera and light
     (assignment2.cpp:341-371: eye (8,1.5,1) -> (0,2.5,-1), fov 55, one
     200 W point light at (0,10,0), Lambert white)."""
+    device = resolve_device(device)
     mb = MaterialBuilder()
     white = mb.phong(kd=(1, 1, 1))
     tris = pack_triangles([(_make_sponza_proxy(), white)], device=device)
@@ -205,10 +223,11 @@ def scene_sponza_proxy(cfg: RenderConfig, device="cpu"):
     return scene, static, cam, cfg
 
 
-def scene_test_sphere(cfg: RenderConfig, device="cpu"):
+def scene_test_sphere(cfg: RenderConfig, device=None):
     """makeTestSphereScene (main.cpp:30-115): green Phong(ks=1) mirror
     sphere, checkerboard plane, CloudTexture environment, two point
     lights."""
+    device = resolve_device(device)
     mb = MaterialBuilder()
     green = mb.phong(kd=(0, 1, 0), ks=(1, 1, 1), shininess=10, ior=1.5)
     checker = mb.textured(TEX_CHECKER, [1.0], color1=(1, 1, 1),
@@ -235,9 +254,9 @@ SCENES: dict[str, Callable] = {
 }
 
 
-def build(name: str, cfg: Optional[RenderConfig] = None, device="cpu"):
-    """Build a named scene on `device`. Returns (Scene, SceneStatic,
-    Camera, RenderConfig)."""
+def build(name: str, cfg: Optional[RenderConfig] = None, device=None):
+    """Build a named scene on `device` (None: the card). Returns (Scene,
+    SceneStatic, Camera, RenderConfig)."""
     if name not in SCENES:
         raise KeyError(f"unknown scene {name!r}; have {sorted(SCENES)}")
     if cfg is None:

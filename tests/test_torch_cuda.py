@@ -1,4 +1,5 @@
-"""The port's CUDA traversal kernel on the card.
+"""The port's CUDA traversal kernel on the card, with and without its
+in-kernel counters (kernel K3).
 
 These tests need an NVIDIA GPU and the CUDA toolkit; without a GPU they
 skip. They import neither jax nor the JAX package, so they run on a
@@ -76,6 +77,39 @@ def test_kernel_matches_twin_on_card(cuda, width):
     assert torch.equal(attr[same], attrp[same])
     assert not attr[~hit].any() and not ids[~hit].any()
     assert torch.equal(occ < BIG, hit)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("width", [4, 8])
+def test_stats_kernel_matches_walk_plain_on_card(cuda, width, any_hit):
+    """Kernel K3: the visit counts equal the plain walk's exactly, and
+    counting leaves t, id and attributes as the kernel without it."""
+    pack = pack_triangles([(clustered_mesh(3000, 18), 0)], device=cuda)
+    bvh = wide_bvh.build_bvh4_sah(pack, width=width)[1]
+    o, d, tmin, tmax = rays(62, 4096, cuda)
+    mode = "any" if any_hit else "closest"
+    before = dict(wide_bvh.LAUNCHES)
+    if any_hit:
+        t, box, tri = wide_bvh.any_hit_triangles(bvh, o, d, tmin, tmax,
+                                                 with_stats=True)
+        t0 = wide_bvh.any_hit_triangles(bvh, o, d, tmin, tmax)
+    else:
+        t, ids, attr, box, tri = wide_bvh.closest_hit_triangles(
+            bvh, o, d, tmin, tmax, with_stats=True)
+        t0, ids0, attr0 = wide_bvh.closest_hit_triangles(bvh, o, d, tmin,
+                                                         tmax)
+        assert torch.equal(ids, ids0) and torch.equal(attr, attr0)
+    torch.cuda.synchronize()
+    assert wide_bvh.LAUNCHES["stats_" + mode] == before["stats_" + mode] + 1
+    assert torch.equal(t, t0)
+    tp, idp, n_int, n_leaf = wide_bvh.walk_plain(bvh, o, d, tmin, tmax,
+                                                 any_hit=any_hit)
+    assert torch.equal(t, tp)
+    if not any_hit:
+        assert torch.equal(ids, idp)
+    assert torch.equal(box, width * n_int)
+    assert torch.equal(tri, wide_bvh.K * n_leaf)
+    assert int(n_leaf.sum()) > 0
 
 
 def test_kernel_reports_stack_overflow(cuda):

@@ -24,6 +24,20 @@ from cse168_raytracer_tpu_torch.scenes import build  # noqa: E402
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "testsphere.ppm")
 
 
+def share_cores_between_workers():
+    """Under pytest-xdist, give each worker's torch an equal share of the
+    cores. By default every worker runs one thread per core; with six
+    workers on eight cores the port's tests then ran 3.5 times slower
+    than with one thread each, their threads waiting on each other. The
+    other port test files import this module for the call below."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers > 1:
+        torch.set_num_threads(max(1, torch.get_num_threads() // workers))
+
+
+share_cores_between_workers()
+
+
 def load_ppm(path):
     with open(path, "rb") as f:
         assert f.readline().strip() == b"P6"
@@ -35,7 +49,7 @@ def load_ppm(path):
 def test_golden_test_sphere():
     ref = load_ppm(GOLDEN)
     cfg = RenderConfig(width=512, height=512, trace_depth=10)
-    scene, static, cam, cfg = build("test_sphere", cfg)
+    scene, static, cam, cfg = build("test_sphere", cfg, device="cpu")
     scene = attach_accel(scene)
     assert scene.accel is None      # spheres and a plane only
     with torch.no_grad():

@@ -3,12 +3,15 @@ for byte: triangle packing, the SAH build and leaf re-order, the W-wide
 collapse, the leaf operand and attribute tables, and the asset-free
 registry scenes."""
 
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import test_torch_golden  # noqa: E402,F401  (shares the cores between workers)
 
 from cse168_raytracer_tpu.models import geometry as jgeo  # noqa: E402
 from cse168_raytracer_tpu.ops import pallas_bvh as jpb  # noqa: E402
@@ -50,11 +53,16 @@ MESHES = {"tri1": lambda: random_mesh(1, 3), "tri33": lambda: random_mesh(33, 4)
 
 
 def ensure_native():
-    """Load the shared SAH builder in both packages (the JAX bridge
-    caches a failed load, e.g. when a parallel test worker was still
-    linking the library, and would then build a different tree)."""
+    """Load the native SAH builder in both packages. The JAX bridge
+    caches a failed load and would then build a different tree: its
+    csrc/libminiro.so may be mid-rebuild in another test worker, or this
+    process may already hold a copy that the JAX package's OBJ loader
+    built without the SAH builder (a later load of the same path returns
+    that handle). Then it loads the port's build, from the same sources
+    and flags, at its own path."""
     tsah.load_native()
     if jsah._load_lib() is False:
+        jsah._CSRC = os.path.dirname(tsah.native_library_path())
         jsah._lib = None
     assert jsah._load_lib()
 
@@ -158,7 +166,8 @@ def test_registry_scene_arrays(scene_name):
     from cse168_raytracer_tpu_torch.config import RenderConfig
     from cse168_raytracer_tpu_torch.scenes import build
     js, jst, jcam, _ = jbuild(scene_name, JCfg(width=16, height=16))
-    ts, tst, tcam, _ = build(scene_name, RenderConfig(width=16, height=16))
+    ts, tst, tcam, _ = build(scene_name, RenderConfig(width=16, height=16),
+                             device="cpu")
     assert_pack_equal(js.tris, ts.tris)
     for pool, fields in (("spheres", ("center", "radius", "material_id",
                                       "valid")),

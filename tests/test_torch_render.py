@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import test_torch_golden  # noqa: E402,F401  (shares the cores between workers)
 
 from chip_smoke import mixed_spec  # noqa: E402
 from cse168_raytracer_tpu.config import RenderConfig as JCfg  # noqa: E402

@@ -17,14 +17,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from test_torch_host import ensure_native  # noqa: E402
 
 from cse168_raytracer_tpu.models import geometry as jgeo  # noqa: E402
 from cse168_raytracer_tpu.ops import pallas_bvh as jpb  # noqa: E402
-from cse168_raytracer_tpu.ops import sah as jsah  # noqa: E402
 from cse168_raytracer_tpu.ops.intersect import \
     intersect_triangles as j_intersect  # noqa: E402
 from cse168_raytracer_tpu_torch.models import geometry as tgeo  # noqa: E402
-from cse168_raytracer_tpu_torch.ops import sah as tsah  # noqa: E402
 from cse168_raytracer_tpu_torch.ops import wide_bvh as twb  # noqa: E402
 from cse168_raytracer_tpu_torch.ops.intersect import \
     intersect_triangles as t_intersect  # noqa: E402
@@ -78,13 +77,6 @@ def rays(seed, n=N_RAYS):
     tmax = rng.uniform(3, 12, n).astype(np.float32)
     tmax[6:10] = -1.0
     return o, d, tmin, tmax
-
-
-def ensure_native():
-    tsah.load_native()
-    if jsah._load_lib() is False:
-        jsah._lib = None
-    assert jsah._load_lib()
 
 
 def build_both(name, width):
@@ -204,10 +196,13 @@ def host_walk(tmp_path_factory):
     lib = ctypes.CDLL(lib_path)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.traverse_host.argtypes = [i, i, p, p, p, p, i, p, p, p, p, i, i, p,
-                                  i, p, p, p]
+                                  i, p, p, p, p, p]
     lib.traverse_host.restype = i
 
-    def run(bvh, o, d, tmin, tmax, any_hit, stack_depth=None):
+    def run(bvh, o, d, tmin, tmax, any_hit, stack_depth=None,
+            with_stats=False):
+        """(t, id, attr, error bits), and with_stats the internal-node
+        and leaf visit counts after them."""
         n = o.shape[0]
         depth = bvh.stack_depth if stack_depth is None else stack_depth
         o, d, tmin, tmax = (torch.as_tensor(x).contiguous()
@@ -215,14 +210,17 @@ def host_walk(tmp_path_factory):
         out_t = torch.empty(n)
         out_id = torch.empty(n, dtype=torch.int32)
         out_attr = torch.empty(n, 32)
+        visits = [torch.empty(n, dtype=torch.int32) if with_stats else None
+                  for _ in range(2)]
         stack = torch.empty(depth * n, dtype=torch.int32)
-        ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+        ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
         err = lib.traverse_host(
             bvh.width, int(any_hit), ptr(o), ptr(d), ptr(tmin), ptr(tmax), n,
             ptr(bvh.cbox), ptr(bvh.links), ptr(bvh.leafW), ptr(bvh.attrA),
             bvh.n_nodes, bvh.n_leaves, ptr(stack), depth, ptr(out_t),
-            ptr(out_id), ptr(out_attr))
-        return out_t.numpy(), out_id.numpy(), out_attr.numpy(), err
+            ptr(out_id), ptr(out_attr), *map(ptr, visits))
+        out = (out_t.numpy(), out_id.numpy(), out_attr.numpy(), err)
+        return out + tuple(v.numpy() for v in visits) if with_stats else out
 
     return run
 
