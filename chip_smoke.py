@@ -41,8 +41,8 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 LIT_LIGHT = (0.0, 8.0, 0.0)
 SPP = 16
 
-# the least time of a traversal (on-chip-measurement guide: H100 SXM
-# peaks at its 700 W limit): the larger of its bytes over the memory
+# the least time of a traversal (H100 SXM peak rates at its 700 W
+# power limit): the larger of its bytes over the memory
 # rate and its f32 operations, counted from traverse_wide.cu, over the
 # rate outside the tensor cores
 HBM_BYTES_S = 3.35e12
