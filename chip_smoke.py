@@ -3,16 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds
-it against its plain PyTorch twin on the card, drives the port's main
-path (sponza_proxy at 512x512, trace depth 4, forward and backward of
-sum(render_hdr) with respect to the material table kd, as bench.py does
-for the JAX package; once as registered and once with its light moved
-inside the atrium, see lit_sponza), checks the card's renders against the CPU's,
-and times the kernel against the twin (phases 1-6). Phase 7 holds the
-kernel's counting mode (K3) against the plain walk; phase 8 drives the
-command line's `render` on the card at 512x512 with --stats, Whitted and
-path-traced through the thin lens at 16 spp, each as registered and lit.
+Builds the port's CUDA kernel from the sources in this checkout and
+holds it against a brute-force oracle on the card (phase 3); drives the
+port's main path (sponza_proxy at 512x512, trace depth 4, forward and
+backward of sum(render_hdr) with respect to the material table kd, as
+bench.py does for the JAX package; once as registered and once with its
+light moved inside the atrium, see lit_sponza) (phase 4); checks the
+card's renders against the CPU's, Whitted and path-traced, and the
+path-traced children on the card's own generator (phase 5); holds the
+kernel, with and without its counters (K3), against its plain PyTorch
+version walk_plain on every ray of the main path and times both (phase
+6), and on phase 3's rays (phase 7); drives the command line's `render`
+on the card at 512x512 with --stats, Whitted and path-traced through the
+thin lens at 16 spp, each as registered and lit (phase 8).
 Each phase prints its own lines; any failure raises and exits non-zero.
 The second-to-last line is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it
@@ -175,16 +178,16 @@ def shadow_rays(scene, o, d):
 # checks
 # ---------------------------------------------------------------------------
 
-def compare_traversal(label, bvh, o, d, tmin, tmax, errs):
-    """Kernel against twin on the card, closest+attr and any-hit, at the
-    bar of tests/test_bvh.py::_check_against_brute plus bit-equal
-    attribute rows where the ids agree and equal any-hit masks."""
+def compare_oracle(label, bvh, o, d, tmin, tmax):
+    """Kernel against the brute-force oracle on the card, closest+attr
+    and any-hit, at the bar of tests/test_bvh.py::_check_against_brute
+    plus bit-equal attribute rows where the ids agree and equal any-hit
+    masks."""
     import torch
     from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
     t, ids, attr = wb.closest_hit_triangles(bvh, o, d, tmin, tmax)
-    tp, idp, attrp = wb.closest_hit_triangles_plain(bvh, o, d, tmin, tmax)
+    tp, idp, attrp = wb.brute_force_triangles(bvh, o, d, tmin, tmax)
     occ = wb.any_hit_triangles(bvh, o, d, tmin, tmax) < 3e37
-    occp = wb.any_hit_triangles_plain(bvh, o, d, tmin, tmax) < 3e37
     torch.cuda.synchronize()
     hit, hitp = t < 3e37, tp < 3e37
     if not torch.equal(hit, hitp):
@@ -200,14 +203,59 @@ def compare_traversal(label, bvh, o, d, tmin, tmax, errs):
         raise AssertionError(f"{label}: attribute rows differ")
     if not torch.equal(attr[~hit], torch.zeros_like(attr[~hit])):
         raise AssertionError(f"{label}: miss rows are not zero")
-    if not torch.equal(occ, occp) or not torch.equal(occ, hitp):
+    if not torch.equal(occ, hitp):
         raise AssertionError(f"{label}: any-hit masks differ")
     err = float((t[both] - tp[both]).abs().max()) if both.any() else 0.0
-    errs["closest"] = max(errs["closest"], err)
-    errs["any"] = max(errs["any"], float((occ != occp).float().max()))
     log(f"  {label}: W={bvh.width} rays={o.shape[0]} hits={int(hit.sum())} "
         f"occluded={int(occ.sum())} max|dt|={err:.3g} id_agree={agree:.5f} "
         f"bit_equal_t={bool(torch.equal(t[both], tp[both]))}")
+
+
+def compare_plain(label, bvh, args, errs):
+    """The kernel without and with its counters (K3) against its plain
+    version, walk_plain, on the same rays, in both modes: t, id,
+    attributes and visit counts all equal. Folds the differences (zero
+    unless it raises) into errs and returns each mode's (internal, leaf)
+    visits summed over the rays."""
+    import torch
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    visits = {}
+    for any_hit in (False, True):
+        mode = "any" if any_hit else "closest"
+        kern = wb.any_hit_triangles if any_hit else wb.closest_hit_triangles
+        plain = (wb.any_hit_triangles_plain if any_hit
+                 else wb.closest_hit_triangles_plain)
+        got = kern(bvh, *args)
+        got = got if isinstance(got, tuple) else (got,)
+        *counted, box, tri = kern(bvh, *args, with_stats=True)
+        *ref, p_box, p_tri = plain(bvh, *args, with_stats=True)
+        torch.cuda.synchronize()
+        for name, a, b, c in zip(("t", "id", "attributes"), got, counted,
+                                 ref):
+            if not torch.equal(a, c):
+                raise AssertionError(f"{label} {mode}: the kernel's {name} "
+                                     "differ from walk_plain's")
+            if not torch.equal(b, c):
+                raise AssertionError(f"{label} {mode}: counting changed "
+                                     f"the kernel's {name}")
+        hit = ref[0] < 3e37
+        d_t = float((got[0] - ref[0])[hit].abs().max()) if hit.any() else 0.0
+        d_box = int((box - p_box).abs().max())
+        d_tri = int((tri - p_tri).abs().max())
+        if d_box or d_tri:
+            raise AssertionError(f"{label} {mode}: K3 counts differ from "
+                                 f"walk_plain's (box {d_box}, tri {d_tri})")
+        errs[mode] = max(errs[mode], d_t)
+        errs["stats"] = max(errs["stats"], d_t, d_box, d_tri)
+        visits[mode] = (int(p_box.sum(dtype=torch.int64)) // bvh.width,
+                        int(p_tri.sum(dtype=torch.int64)) // wb.K)
+        n = args[0].shape[0]
+        log(f"  {label} {mode}: W={bvh.width} {n} rays, hits "
+            f"{int(hit.sum())}; kernel = walk_plain in t, id, attributes "
+            f"and counts, with and without counting; per ray "
+            f"{float(box.double().mean()):.3f} box and "
+            f"{float(tri.double().mean()):.3f} triangle tests")
+    return visits
 
 
 def time_cuda(fn, reps, warm=True):
@@ -227,11 +275,11 @@ def time_cuda(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
-def fwd_bwd(scene, static, cam, cfg):
+def fwd_bwd(scene, static, cam, cfg, gen=None):
     from cse168_raytracer_tpu_torch.render.integrator import render_hdr
     kd = scene.materials.kd.detach().clone().requires_grad_(True)
     s = scene.replace(materials=scene.materials.replace(kd=kd))
-    hdr, stats = render_hdr(s, static, cam, cfg)
+    hdr, stats = render_hdr(s, static, cam, cfg, gen)
     hdr.sum().backward()
     return hdr.detach(), kd.grad, stats
 
@@ -284,7 +332,11 @@ def phase_build():
     return build_s
 
 
-def phase_kernel_vs_twin(device):
+def phase_kernel_vs_oracle(device):
+    """Phase 3: the kernel against the brute-force oracle on random
+    meshes and on 8,192 of the main path's primary and shadow rays, on
+    sponza_proxy's W=4 tree and a 400k-triangle W=8 one. Returns the
+    (label, tree, rays) cases for phase 7."""
     import torch
     from cse168_raytracer_tpu_torch.config import RenderConfig
     from cse168_raytracer_tpu_torch.models.geometry import pack_triangles
@@ -295,10 +347,9 @@ def phase_kernel_vs_twin(device):
     from cse168_raytracer_tpu_torch.models.materials import MaterialBuilder
     from cse168_raytracer_tpu_torch.models.lights import LIGHT_POINT
     from cse168_raytracer_tpu_torch.models.scene import make_scene
-    errs = {"closest": 0.0, "any": 0.0}
-    cases = []     # (label, tree, rays) for phase 7
+    cases = []
     rng = np.random.default_rng(SEED)
-    log("[3 kernel vs twin]")
+    log("[3 kernel vs oracle]")
     for n_tri in (1, 33, 80, 3000):
         pack = pack_triangles([(random_mesh(n_tri, rng), 0)], device=device)
         o = torch.tensor([[0.0, 0.0, -5.0]], device=device).repeat(4096, 1)
@@ -307,7 +358,8 @@ def phase_kernel_vs_twin(device):
         d = (d / d.norm(dim=1, keepdim=True)).contiguous()
         for width in (4, 8):
             bvh = build_bvh4_sah(pack, width=width)[1]
-            compare_traversal(f"mesh{n_tri}", bvh, o, d, 0.0, 1e10, errs)
+            compare_oracle(f"mesh{n_tri}", bvh, o, d, 0.0, 1e10)
+            cases.append((f"mesh{n_tri}", bvh, (o, d, 0.0, 1e10)))
 
     cfg = RenderConfig(width=RES, height=RES, trace_depth=DEPTH)
     scene, _, cam, _ = build("sponza_proxy", cfg, device=device)
@@ -316,13 +368,11 @@ def phase_kernel_vs_twin(device):
                           device=device)
     o, d = primary_rays(cam, RES, RES, device)
     o, d = o[sel].contiguous(), d[sel].contiguous()
-    compare_traversal("sponza_proxy primary", scene.accel, o, d, 0.0, 1e12,
-                      errs)
+    compare_oracle("sponza_proxy primary", scene.accel, o, d, 0.0, 1e12)
     # toward the light inside the atrium: some shadow rays are occluded,
     # some walk the tree to their end
     so, sd, stmax = shadow_rays(lit_sponza(scene), o, d)
-    compare_traversal("sponza_proxy shadow", scene.accel, so, sd, 0.0, stmax,
-                      errs)
+    compare_oracle("sponza_proxy shadow", scene.accel, so, sd, 0.0, stmax)
     cases += [("sponza_proxy primary", scene.accel, (o, d, 0.0, 1e12)),
               ("sponza_proxy shadow", scene.accel, (so, sd, 0.0, stmax))]
 
@@ -337,14 +387,13 @@ def phase_kernel_vs_twin(device):
     big = attach_accel(big)
     if big.accel.width != 8:
         raise AssertionError("the 400k-triangle scene did not get W=8")
-    compare_traversal(f"sponza_proxy 400k ({big.tris.n_valid} tris)",
-                      big.accel, o, d, 0.0, 1e12, errs)
+    compare_oracle(f"sponza_proxy 400k ({big.tris.n_valid} tris)",
+                   big.accel, o, d, 0.0, 1e12)
     so, sd, stmax = shadow_rays(big, o, d)
-    compare_traversal("sponza_proxy 400k shadow", big.accel, so, sd, 0.0,
-                      stmax, errs)
+    compare_oracle("sponza_proxy 400k shadow", big.accel, so, sd, 0.0, stmax)
     cases += [("sponza_proxy 400k primary", big.accel, (o, d, 0.0, 1e12)),
               ("sponza_proxy 400k shadow", big.accel, (so, sd, 0.0, stmax))]
-    return errs, cases
+    return cases
 
 
 def lit_sponza(scene):
@@ -436,122 +485,161 @@ def phase_main_path(device):
 
 
 def phase_card_vs_cpu(device):
+    """Phase 5: renders at 64x64 on the card and on the CPU, Whitted and
+    path-traced (mixed_scene's glossy mirror and glass spheres spawn
+    lobe-sampled children). The path-traced pair draws from one seeded
+    CPU generator, so both consume the same uniforms; its traversal
+    counters (K3 on the card, walk_plain on the CPU) must agree too."""
     import torch
     from cse168_raytracer_tpu_torch.config import RenderConfig
     from cse168_raytracer_tpu_torch.ops.accel import attach_accel
     from cse168_raytracer_tpu_torch.scenes import build
-    for name in ("sphere", "mixed"):
+    pt = dict(path_tracing=True, trace_samples=2, collect_stats=True)
+    for name, extra in (("sphere", {}), ("mixed", {}),
+                        ("mixed path-traced", pt)):
         out = []
         for dev in (device, torch.device("cpu")):
-            cfg = RenderConfig(width=64, height=64, trace_depth=DEPTH)
-            if name == "mixed":
+            cfg = RenderConfig(width=64, height=64, trace_depth=DEPTH, **extra)
+            if name.startswith("mixed"):
                 scene, static, cam = mixed_scene(dev)
             else:
                 scene, static, cam, _ = build(name, cfg, device=dev)
             scene = attach_accel(scene)
-            hdr, grad, stats = fwd_bwd(scene, static, cam, cfg)
-            out.append((hdr.cpu(), grad.cpu(), int(stats.secondary_rays)))
-        (card_hdr, card_g, card_sec), (cpu_hdr, cpu_g, cpu_sec) = out
+            gen = torch.Generator("cpu").manual_seed(SEED) if extra else None
+            hdr, grad, stats = fwd_bwd(scene, static, cam, cfg, gen)
+            out.append((hdr.cpu(), grad.cpu(),
+                        {f: int(getattr(stats, f)) for f in (
+                            "secondary_rays", "shadow_rays", "box_tests",
+                            "tri_tests")}))
+        (card_hdr, card_g, card_st), (cpu_hdr, cpu_g, cpu_st) = out
         share = pixel_agreement(card_hdr, cpu_hdr)
         g_err = float((card_g - cpu_g).abs().max()
                       / cpu_g.abs().max().clamp(min=1e-30))
         log(f"[5 card vs cpu] {name} 64x64: {share * 100:.3f}% of pixels "
             f"within rtol 1e-4/atol 1e-5; kd-gradient max rel diff "
-            f"{g_err:.3g}; secondary rays {card_sec} (card) {cpu_sec} (cpu)")
+            f"{g_err:.3g}; card {card_st}, cpu {cpu_st}")
         if share < 0.999:
             bad = (~torch.isclose(card_hdr, cpu_hdr, **TOL).all(-1)).nonzero()
             for y, x in bad[:8].tolist():
                 log(f"   pixel ({y}, {x}): card {card_hdr[y, x].tolist()} "
                     f"cpu {cpu_hdr[y, x].tolist()}")
             raise AssertionError(f"{name}: card and CPU renders disagree")
+        if extra:
+            if card_st["secondary_rays"] <= 0 or card_st["box_tests"] <= 0:
+                raise AssertionError(f"{name}: no children or no counts")
+            # the same draws: only a direction rounded differently by the
+            # card's transcendentals may change a walk
+            for f, v in card_st.items():
+                if abs(v - cpu_st[f]) > 1e-3 * max(cpu_st[f], 1):
+                    raise AssertionError(f"{name}: {f} {v} on the card, "
+                                         f"{cpu_st[f]} on the CPU")
+
+
+def phase_children_on_card(device):
+    """Phase 5: a path-traced render on the card's own generator (the
+    render's default), with counters: the glossy children are drawn on
+    the card, compacted and traced through K3. At one sample the render
+    to depth 0 draws the same primary rays, so the counts the deeper
+    render adds are those of the children's traversals."""
+    import torch
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    scene, static, cam = mixed_scene(device)
+    scene = attach_accel(scene)
+    saved = dict(wb.LAUNCHES)
+    st = {}
+    with torch.no_grad():
+        for depth in (0, DEPTH):
+            cfg = RenderConfig(width=RES // 4, height=RES // 4,
+                               trace_depth=depth, path_tracing=True,
+                               trace_samples=1, collect_stats=True)
+            wb.LAUNCHES["stats_closest"] = 0
+            hdr, stats = render_hdr(scene, static, cam, cfg)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(hdr).all()):
+                raise AssertionError("path-traced render: non-finite image")
+            st[depth] = (int(stats.secondary_rays), int(stats.box_tests),
+                         int(stats.tri_tests), wb.LAUNCHES["stats_closest"])
+    wb.LAUNCHES.update(saved)
+    (_, box0, tri0, n0), (sec, box, tri, n) = st[0], st[DEPTH]
+    log(f"[5 children] mixed {RES // 4}x{RES // 4} path-traced on the "
+        f"card's generator: {sec} secondary rays; their traversals "
+        f"{box - box0} box and {tri - tri0} triangle tests "
+        f"({n - n0} more K3 launches than at depth 0)")
+    if sec <= 0 or box <= box0 or tri <= tri0 or n <= n0:
+        raise AssertionError("the path-traced children did not go through "
+                             "K3 on the card")
 
 
 def phase_plain_timing(device, main, errs):
+    """Phase 6: on every ray of the main path (the registered scene's
+    primary rays and its shadow rays, and the lit scene's shadow rays),
+    the kernel with and without counters against walk_plain, exactly,
+    and against the brute-force oracle on as many rays as its budget
+    allows; then each kernel's time beside its plain version's, and the
+    bounds from this run's visit counts."""
     import torch
     from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
     scene, cam = main["scene"], main["cam"]
     bvh = scene.accel
+    saved = dict(wb.LAUNCHES)
     o, d = primary_rays(cam, RES, RES, device)
     so, sd, stmax = shadow_rays(scene, o, d)
-    saved = dict(wb.LAUNCHES)
-    out = {}
-    for mode, args, kern, plain in (
-            ("closest", (o, d, 0.0, 1e12), wb.closest_hit_triangles,
-             wb.closest_hit_triangles_plain),
-            ("any", (so, sd, 0.0, stmax), wb.any_hit_triangles,
-             wb.any_hit_triangles_plain)):
-        n = args[0].shape[0]
-        ms = time_cuda(lambda: kern(bvh, *args), 10)
-        sub = tuple(a[:PLAIN_SUBSET] if torch.is_tensor(a) else a
-                    for a in args)
-        sub_ms = time_cuda(lambda: plain(bvh, *sub), 1)
-        est_s = sub_ms / 1000 * n / PLAIN_SUBSET
-        if est_s <= PLAIN_BUDGET_S:
-            plain_ms, plain_n = time_cuda(lambda: plain(bvh, *args), 1,
-                                         warm=False), n
-        else:
-            plain_ms, plain_n = sub_ms, PLAIN_SUBSET
-        # the kernel against the twin at the main path's shapes (or the
-        # twin's subset of them)
-        compare_traversal(f"main-path {mode} rays", bvh,
-                          *(a[:plain_n] if torch.is_tensor(a) else a
-                            for a in args), errs)
-        log(f"[6 plain timing] {mode}: kernel {ms:.3f} ms for {n} rays; "
-            f"plain twin {plain_ms:.1f} ms for {plain_n} rays"
-            + ("" if plain_n == n else
-               f" (the full {n} would take ~{est_s:.0f} s, over the "
-               f"{PLAIN_BUDGET_S:.0f} s budget, so the twin ran on "
-               f"{PLAIN_SUBSET} rays)"))
-        out[mode] = {"ms": ms, "rays": n, "plain_ms": plain_ms,
-                     "plain_rays": plain_n}
-
-    # the counting mode (K3) on the same rays: its cost beside the plain
-    # modes, and the visits that set each mode's bound
-    work = {}
-    for mode, args in (("closest", (o, d, 0.0, 1e12)),
-                       ("any", (so, sd, 0.0, stmax))):
+    lo, ld, ltmax = shadow_rays(lit_sponza(scene), o, d)
+    rays = {"primary": (o, d, 0.0, 1e12), "shadow": (so, sd, 0.0, stmax),
+            "lit shadow": (lo, ld, 0.0, ltmax)}
+    visits = {k: compare_plain(f"main-path {k} rays", bvh, args, errs)
+              for k, args in rays.items()}
+    out, work = {}, {}
+    for mode, key in (("closest", "primary"), ("any", "shadow")):
+        args = rays[key]
         any_hit = mode == "any"
         kern = wb.any_hit_triangles if any_hit else wb.closest_hit_triangles
-        ms = time_cuda(lambda: kern(bvh, *args, with_stats=True), 10)
-        *_, box, tri = kern(bvh, *args, with_stats=True)
+        plain = (wb.any_hit_triangles_plain if any_hit
+                 else wb.closest_hit_triangles_plain)
         n = args[0].shape[0]
+        ms = time_cuda(lambda: kern(bvh, *args), 10)
+        stats_ms = time_cuda(lambda: kern(bvh, *args, with_stats=True), 10)
+        plain_ms = time_cuda(lambda: plain(bvh, *args), 2)
+        stats_plain_ms = time_cuda(lambda: plain(bvh, *args,
+                                                 with_stats=True), 2)
+        # the brute-force oracle on all the rays, or on a subset when the
+        # whole would overrun its budget
         sub = tuple(a[:PLAIN_SUBSET] if torch.is_tensor(a) else a
                     for a in args)
-        sub_ms = time_cuda(lambda: wb.walk_plain(bvh, *sub, any_hit=any_hit),
-                           1)
+        sub_ms = time_cuda(lambda: wb.brute_force_triangles(bvh, *sub), 1)
         est_s = sub_ms / 1000 * n / PLAIN_SUBSET
-        if est_s <= PLAIN_BUDGET_S:
-            plain_ms, plain_n = time_cuda(
-                lambda: wb.walk_plain(bvh, *args, any_hit=any_hit), 1,
-                warm=False), n
-        else:
-            plain_ms, plain_n = sub_ms, PLAIN_SUBSET
-        visits = (int(box.sum(dtype=torch.int64)) // bvh.width,
-                  int(tri.sum(dtype=torch.int64)) // wb.K)
+        oracle_n = n if est_s <= PLAIN_BUDGET_S else PLAIN_SUBSET
+        compare_oracle(f"main-path {key} rays", bvh,
+                       *(a[:oracle_n] if torch.is_tensor(a) else a
+                         for a in args))
+        internal, leaves = visits[key][mode]
         for counting in (False, True):
             work[(mode, counting)] = traversal_work(bvh, n, any_hit, counting,
-                                                    *visits)
-        out["stats_" + mode] = {"ms": ms, "rays": n, "plain_ms": plain_ms,
-                                "plain_rays": plain_n,
-                                "internal_visits": visits[0],
-                                "leaf_visits": visits[1]}
-        log(f"[6 plain timing] {mode} with counters: kernel {ms:.3f} ms "
-            f"(without {out[mode]['ms']:.3f} ms) for {n} rays; walk_plain "
-            f"{plain_ms:.1f} ms for {plain_n} rays; {visits[0]} internal "
-            f"and {visits[1]} leaf visits ({visits[0] / n:.3f} and "
-            f"{visits[1] / n:.3f} per ray)")
-    for mode in ("closest", "any"):
-        out[mode].update(bound(work[(mode, False)]))
+                                                    internal, leaves)
+        out[mode] = {"ms": ms, "rays": n, "plain_ms": plain_ms,
+                     "plain_rays": n, **bound(work[(mode, False)])}
+        out["stats_" + mode] = {"ms": stats_ms, "plain_ms": stats_plain_ms}
+        log(f"[6 plain timing] {key} rays, {mode}: kernel {ms:.3f} ms, with "
+            f"counters {stats_ms:.3f} ms, for {n} rays; walk_plain "
+            f"{plain_ms:.1f} ms ({stats_plain_ms:.1f} ms with counts); "
+            f"{internal} internal and {leaves} leaf visits "
+            f"({internal / n:.3f} and {leaves / n:.3f} per ray); oracle on "
+            f"{oracle_n} rays"
+            + ("" if oracle_n == n else
+               f" (all {n} would take ~{est_s:.0f} s, over its "
+               f"{PLAIN_BUDGET_S:.0f} s budget)"))
         log(f"[6 bound] {mode}: {bound_line(work[(mode, False)])}; kernel "
-            f"{out[mode]['ms']:.3f} ms = "
-            f"{out[mode]['bound_ms'] / out[mode]['ms'] * 100:.2f}% of bound")
+            f"{ms:.3f} ms = {out[mode]['bound_ms'] / ms * 100:.2f}% of bound")
     both = [work[(m, True)] for m in ("closest", "any")]
     total = {k: sum(w[k] for w in both) for k in both[0]}
     out["stats"] = {
         "ms": out["stats_closest"]["ms"] + out["stats_any"]["ms"],
         "plain_ms": (out["stats_closest"]["plain_ms"]
                      + out["stats_any"]["plain_ms"]),
-        **bound(total)}
+        "rays": 2 * RES * RES, "plain_rays": 2 * RES * RES, **bound(total)}
     log(f"[6 bound] counting, both modes: {bound_line(total)}; kernels "
         f"{out['stats']['ms']:.3f} ms")
     wb.LAUNCHES.update(saved)
@@ -591,113 +679,70 @@ def bound_line(w):
 
 
 def phase_k3(cases, errs):
-    """Kernel K3 against the plain walk on the card, on phase 3's 8,192
-    primary and shadow rays of the W=4 and W=8 trees, in both modes:
-    equal visit counts, and t, id and attributes as the kernel without
-    counters gives them."""
-    import torch
+    """Phase 7: kernel K3 against the plain walk on the card, on phase
+    3's meshes and its 8,192 primary and shadow rays of the W=4 and W=8
+    trees, in both modes: equal visit counts, and t, id and attributes
+    as walk_plain and the kernel without counters give them."""
     from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
     saved = dict(wb.LAUNCHES)
-    errs["stats"] = 0.0
+    log("[7 K3]")
     for label, bvh, args in cases:
-        for any_hit in (False, True):
-            if any_hit:
-                t, box, tri = wb.any_hit_triangles(bvh, *args,
-                                                   with_stats=True)
-                same = torch.equal(t, wb.any_hit_triangles(bvh, *args))
-            else:
-                t, ids, attr, box, tri = wb.closest_hit_triangles(
-                    bvh, *args, with_stats=True)
-                t0, ids0, attr0 = wb.closest_hit_triangles(bvh, *args)
-                same = (torch.equal(t, t0) and torch.equal(ids, ids0)
-                        and torch.equal(attr, attr0))
-            tp, idp, n_int, n_leaf = wb.walk_plain(bvh, *args,
-                                                   any_hit=any_hit)
-            torch.cuda.synchronize()
-            mode = "any-hit" if any_hit else "closest+attr"
-            if not same:
-                raise AssertionError(f"{label} {mode}: counting changed "
-                                     "the kernel's results")
-            d_box = (box - bvh.width * n_int).abs().max()
-            d_tri = (tri - wb.K * n_leaf).abs().max()
-            hit = (t < 3e37) & (tp < 3e37)
-            d_t = float((t - tp)[hit].abs().max()) if hit.any() else 0.0
-            errs["stats"] = max(errs["stats"], d_t, float(d_box),
-                                float(d_tri))
-            if (int(d_box) or int(d_tri) or not torch.equal(t < 3e37,
-                                                            tp < 3e37)
-                    or d_t or (not any_hit and not torch.equal(ids, idp))):
-                raise AssertionError(
-                    f"{label} {mode}: K3 differs from walk_plain (box "
-                    f"{int(d_box)}, tri {int(d_tri)}, t {d_t})")
-            n = args[0].shape[0]
-            log(f"[7 K3] {label} {mode}: W={bvh.width} {n} rays, counts "
-                f"equal walk_plain's; per ray {float(box.double().mean()):.3f}"
-                f" box and {float(tri.double().mean()):.3f} triangle tests")
+        compare_plain(label, bvh, args, errs)
     wb.LAUNCHES.update(saved)
 
 
-def lit_scene_builder():
-    """sponza_proxy with lit_sponza's light, as a registry entry for the
-    command line (runtime only: the registry keeps its three scenes)."""
-    from cse168_raytracer_tpu_torch.scenes.registry import scene_sponza_proxy
-
-    def scene_sponza_proxy_lit(cfg, device=None):
-        scene, static, cam, cfg = scene_sponza_proxy(cfg, device)
-        return lit_sponza(scene), static, cam, cfg
-    return scene_sponza_proxy_lit
-
-
-def phase_cli(card):
-    """The command line's render on the card at 512x512, depth 4, with
-    --stats: (a) Whitted and (b) path-traced through the thin lens at SPP
-    samples, each on sponza_proxy as registered and lit. Its [scene] ...
-    [out] lines go to this script's output."""
+def phase_cli(device, card):
+    """Phase 8: the command line's render on the card at 512x512, depth
+    4, with --stats: (a) Whitted and (b) path-traced through the thin
+    lens at SPP samples, each on sponza_proxy as registered and lit (the
+    same scene, built here with its light moved and handed to the render
+    command). Its [scene] ... [out] lines go to this script's output."""
     import torch
     from cse168_raytracer_tpu_torch import cli
     from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
-    from cse168_raytracer_tpu_torch.scenes import registry
-    registry.SCENES["sponza_proxy_lit"] = lit_scene_builder()
+    from cse168_raytracer_tpu_torch.scenes import build
+    scene, static, cam, _ = build("sponza_proxy", device=device)
+    lit = (lit_sponza(scene), static, cam)
+    del scene
     runs = {}
     for k in wb.LAUNCHES:
         wb.LAUNCHES[k] = 0
     with tempfile.TemporaryDirectory() as tmp:
-        for scene in ("sponza_proxy", "sponza_proxy_lit"):
+        for name, built in (("sponza_proxy", None), ("sponza_proxy lit", lit)):
             for label, extra in (("a", []), ("b", [
                     "--path-tracing", "--dof", "--spp", str(SPP)])):
-                report = {}
-                out = os.path.join(tmp, f"{scene}_{label}.png")
-                argv = ["render", "--scene", scene, "--width", str(RES),
-                        "--height", str(RES), "--depth", str(DEPTH),
+                out = os.path.join(tmp, f"{name.replace(' ', '_')}_{label}"
+                                   ".png")
+                argv = ["render", "--scene", "sponza_proxy", "--width",
+                        str(RES), "--height", str(RES), "--depth", str(DEPTH),
                         "--stats", "--out", out] + extra
                 log("[8 cli] python -m cse168_raytracer_tpu_torch.cli "
-                    + " ".join(x for x in argv if x not in ("--out", out)))
+                    + " ".join(x for x in argv if x not in ("--out", out))
+                    + (f" (light moved to {LIT_LIGHT})" if built else ""))
                 with contextlib.redirect_stderr(sys.stdout):
-                    rc = cli.main(argv, report=report)
-                if rc != 0 or not os.path.getsize(out):
-                    raise AssertionError(f"cli {scene} ({label}): exit {rc}")
-                hdr, st = report["hdr"], report["stats"]
+                    res = cli.render(cli.parser().parse_args(argv), built)
+                if not os.path.getsize(out):
+                    raise AssertionError(f"cli {name} ({label}): no image")
+                hdr, st = res["hdr"], res["stats"]
                 if hdr.shape != (RES, RES, 3) or not bool(
                         torch.isfinite(hdr).all()):
-                    raise AssertionError(f"cli {scene} ({label}): image")
-                if scene.endswith("lit") and not bool(hdr.max() > hdr.min()):
-                    raise AssertionError(f"cli {scene} ({label}): constant")
+                    raise AssertionError(f"cli {name} ({label}): image")
+                if built and not bool(hdr.max() > hdr.min()):
+                    raise AssertionError(f"cli {name} ({label}): constant")
                 if int(st.box_tests) <= 0 or int(st.tri_tests) <= 0:
-                    raise AssertionError(f"cli {scene} ({label}): counters")
-                ms = report["steady_s"] * 1e3
-                rays = report["rays"]
-                runs[(scene, label)] = {
-                    "ms": ms, "ms_per_sample": ms / report["samples"],
-                    "rays": rays, "rays_s": rays / report["steady_s"],
-                    "box_per_ray": int(st.box_tests) / rays,
-                    "tri_per_ray": int(st.tri_tests) / rays}
-                r = runs[(scene, label)]
-                log(f"[8 cli] {scene} ({label}): {ms:.3f} ms per render "
-                    f"({r['ms_per_sample']:.3f} ms/sample), {rays} rays, "
+                    raise AssertionError(f"cli {name} ({label}): counters")
+                ms = res["steady_s"] * 1e3
+                n_rays = res["rays"]
+                runs[(name, label)] = r = {
+                    "ms": ms, "ms_per_sample": ms / res["samples"],
+                    "rays": n_rays, "rays_s": n_rays / res["steady_s"],
+                    "box_per_ray": int(st.box_tests) / n_rays,
+                    "tri_per_ray": int(st.tri_tests) / n_rays}
+                log(f"[8 cli] {name} ({label}): {ms:.3f} ms per render "
+                    f"({r['ms_per_sample']:.3f} ms/sample), {n_rays} rays, "
                     f"{r['rays_s']:.1f} rays/s, {r['box_per_ray']:.3f} box "
                     f"and {r['tri_per_ray']:.3f} triangle tests per ray; "
                     f"image mean {float(hdr.mean()):.6g}; card {card}")
-    del registry.SCENES["sponza_proxy_lit"]
     launches = dict(wb.LAUNCHES)
     log(f"[8 cli] kernel launches over the four renders: {launches}")
     for k in ("stats_closest", "stats_any"):
@@ -709,15 +754,17 @@ def phase_cli(card):
 def main():
     device, card = phase_device()
     build_s = phase_build()
-    errs, k3_cases = phase_kernel_vs_twin(device)
+    errs = {"closest": 0.0, "any": 0.0, "stats": 0.0}
+    k3_cases = phase_kernel_vs_oracle(device)
     # phase 7 runs on phase 3's trees while they are on the card; they
     # are freed before phase 4 measures the step's peak memory
     phase_k3(k3_cases, errs)
     del k3_cases
     main_run = phase_main_path(device)
     phase_card_vs_cpu(device)
+    phase_children_on_card(device)
     timing = phase_plain_timing(device, main_run, errs)
-    cli_runs, cli_launches = phase_cli(card)
+    cli_runs, cli_launches = phase_cli(device, card)
     import torch
     src = "cse168_raytracer_tpu_torch/csrc/traverse_wide.cu"
     replaces = "cse168_raytracer_tpu/ops/pallas_bvh.py:1056"

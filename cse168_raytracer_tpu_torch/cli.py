@@ -70,7 +70,11 @@ def _unported(args) -> list[str]:
     return bad
 
 
-def _cmd_render(args, report) -> int:
+def render(args, built=None) -> dict:
+    """The `render` command on parsed arguments: build args.scene (or
+    take `built`, that scene's (Scene, SceneStatic, Camera) as
+    scenes.build gives them), render it twice, write args.out. Returns
+    the HDR image, the RenderStats and the timings."""
     import torch
 
     from cse168_raytracer_tpu_torch.config import RenderConfig
@@ -91,9 +95,12 @@ def _cmd_render(args, report) -> int:
         collect_stats=args.stats, seed=args.seed)
 
     t0 = time.perf_counter()
-    scene, static, cam, cfg = build(args.scene, cfg, device=device)
-    _log(f"[scene] built {args.scene} on {device} in "
-         f"{time.perf_counter() - t0:.2f}s ({scene.tris.num_tris} padded "
+    if built is None:
+        scene, static, cam, cfg = build(args.scene, cfg, device=device)
+    else:
+        scene, static, cam = built
+    _log(f"[scene] {'given' if built else 'built'} {args.scene} on {device} "
+         f"in {time.perf_counter() - t0:.2f}s ({scene.tris.num_tris} padded "
          f"tris)")
     if args.accel:
         from cse168_raytracer_tpu_torch.ops.accel import attach_accel
@@ -137,11 +144,8 @@ def _cmd_render(args, report) -> int:
     img = to_bytes(tonemap(hdr, args.tonemap)).cpu().numpy()
     write_image(args.out, img)
     _log(f"[out] wrote {args.out}")
-    if report is not None:
-        report.update(hdr=hdr, stats=stats, first_s=times[0],
-                      steady_s=times[1], rays=n_rays, samples=samples,
-                      device=device)
-    return 0
+    return dict(hdr=hdr, stats=stats, first_s=times[0], steady_s=times[1],
+                rays=n_rays, samples=samples, device=device)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -194,9 +198,7 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None, report: dict | None = None) -> int:
-    """Run the command line; `report`, when given, receives the render's
-    HDR image, RenderStats and timings."""
+def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in NOT_PORTED_COMMANDS:
         _log(f"error: `{argv[0]}`: {NOT_PORTED_COMMANDS[argv[0]]} is not "
@@ -210,7 +212,8 @@ def main(argv=None, report: dict | None = None) -> int:
         for line in bad:
             _log(f"error: {line} is not ported yet")
         return 2
-    return _cmd_render(args, report)
+    render(args)
+    return 0
 
 
 if __name__ == "__main__":

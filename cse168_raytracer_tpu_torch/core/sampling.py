@@ -28,9 +28,12 @@ from cse168_raytracer_tpu_torch.core.vecmath import align_hemisphere, dot
 
 
 def uniform(gen: torch.Generator, shape, device=None) -> torch.Tensor:
-    """float32 uniforms in [0, 1) of `shape` from `gen` (on its device)."""
-    return torch.rand(tuple(shape), generator=gen,
-                      device=gen.device if device is None else device)
+    """float32 uniforms in [0, 1) of `shape`, drawn from `gen` on the
+    generator's own device and placed on `device` (default: that one).
+    A CPU generator thus feeds a render on the card the very numbers it
+    feeds the same render on the CPU."""
+    u = torch.rand(tuple(shape), generator=gen, device=gen.device)
+    return u if device is None else u.to(device)
 
 
 def cosine_hemisphere(u: torch.Tensor, n: torch.Tensor):

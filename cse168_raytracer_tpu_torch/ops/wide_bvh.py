@@ -13,11 +13,13 @@ scenes above 300k triangles, and in its with_stats mode (kernel K3:
 `with_stats=True` also returns per-ray box and triangle tests, W times
 the internal-node visits and K times the leaf visits, as
 pallas_bvh.py:569-574 scales them). On CPU tensors the same entry
-points run a plain PyTorch version: without counters the twin, a
+points run the kernel's plain version, `walk_plain`: the kernel's own
+walk vectorized over rays, with its counts dropped when they are not
+asked for. For a CUDA tensor a wrapper launches the kernel or raises;
+it never falls back to the plain version. `brute_force_triangles`, a
 chunked brute force over the leaf table with the same acceptance rule,
-first-lane ties and attribute gather; with counters `walk_plain`, the
-kernel's own walk vectorized over rays. For a CUDA tensor a wrapper
-launches the kernel or raises; it never falls back to a plain version.
+first-lane ties and attribute gather, is an oracle independent of the
+walk, for tests and chip_smoke.py; no entry point runs it.
 
 The counters differ from the TPU kernel's on purpose:
 1. they are per ray: the TPU kernel counts the visits of a 256-ray tile
@@ -267,7 +269,7 @@ def build_bvh4_sah(pack: TrianglePack, width: int = 4,
 
 
 # ---------------------------------------------------------------------------
-# Traversal: the CUDA kernel and its plain twin
+# Traversal: the CUDA kernel, its plain version and a brute-force oracle
 # ---------------------------------------------------------------------------
 
 def _bounds(o, tmin, tmax):
@@ -312,16 +314,16 @@ def _lane_t(lw, r6, o3, tmin, tmax):
 
 
 @torch.no_grad()
-def _plain_walk(bvh: WideBVH, o, d, tmin, tmax):
-    """Brute force over every leaf: nearest accepted triangle per ray
-    under the kernel's acceptance rule, first (leaf, lane) on ties.
-    Only live rays (tmax >= tmin) are tested."""
+def brute_force_triangles(bvh: WideBVH, o, d, tmin, tmax):
+    """Brute force over every leaf: (t, _BIG on a miss; id (N,) int32;
+    attr (N, 32)) of the nearest accepted triangle per ray under the
+    kernel's acceptance rule, first (leaf, lane) on ties. Only live rays
+    (tmax >= tmin) are tested. t < _BIG is also the any-hit answer."""
+    tmin, tmax = _bounds(o, tmin, tmax)
     n = o.shape[0]
     best_t = torch.full((n,), _BIG, dtype=torch.float32, device=o.device)
     best_id = torch.zeros((n,), dtype=torch.int64, device=o.device)
     live = torch.nonzero(tmax >= tmin)[:, 0]
-    if live.numel() == 0:
-        return best_t, best_id
     o, d, tmin, tmax = o[live], d[live], tmin[live], tmax[live]
     m = cross(o, d)    # the ray moment, rounded as the kernel rounds it
     r6 = [d[:, 0], d[:, 1], d[:, 2], m[:, 0], m[:, 1], m[:, 2]]
@@ -346,7 +348,7 @@ def _plain_walk(bvh: WideBVH, o, d, tmin, tmax):
             bid = torch.where(better, lj + l0 * K, bid)
         lt_all[rs], lid_all[rs] = bt, bid
     best_t[live], best_id[live] = lt_all, lid_all
-    return best_t, best_id
+    return best_t, best_id.to(torch.int32), _gather_attr(bvh, best_t, best_id)
 
 
 def _leaf_test(bvh: WideBVH, leaves, o, d, m, tmin, curmax):
@@ -456,27 +458,20 @@ def _tests(bvh: WideBVH, n_int, n_leaf):
 
 def closest_hit_triangles_plain(bvh: WideBVH, o, d, tmin, tmax,
                                 with_stats: bool = False):
-    """Plain PyTorch version of the closest-hit kernel: (t, id, attr),
-    and (box tests, triangle tests) per ray with_stats (by walk_plain;
-    without, the brute-force twin)."""
-    if with_stats:
-        t, ids, n_int, n_leaf = walk_plain(bvh, o, d, tmin, tmax)
-        return (t, ids, _gather_attr(bvh, t, ids.to(torch.int64)),
-                *_tests(bvh, n_int, n_leaf))
-    tmin, tmax = _bounds(o, tmin, tmax)
-    t, ids = _plain_walk(bvh, o.detach(), d.detach(), tmin, tmax)
-    return t, ids.to(torch.int32), _gather_attr(bvh, t, ids)
+    """Plain PyTorch version of the closest-hit kernel, by walk_plain:
+    (t, id, attr), and (box tests, triangle tests) per ray with_stats."""
+    t, ids, n_int, n_leaf = walk_plain(bvh, o, d, tmin, tmax)
+    out = (t, ids, _gather_attr(bvh, t, ids.to(torch.int64)))
+    return out + _tests(bvh, n_int, n_leaf) if with_stats else out
 
 
 def any_hit_triangles_plain(bvh: WideBVH, o, d, tmin, tmax,
                             with_stats: bool = False):
-    """Plain PyTorch version of the any-hit kernel: t, < _BIG if
-    occluded, and (box tests, triangle tests) per ray with_stats."""
-    if with_stats:
-        t, _, n_int, n_leaf = walk_plain(bvh, o, d, tmin, tmax, any_hit=True)
-        return (t, *_tests(bvh, n_int, n_leaf))
-    tmin, tmax = _bounds(o, tmin, tmax)
-    return _plain_walk(bvh, o.detach(), d.detach(), tmin, tmax)[0]
+    """Plain PyTorch version of the any-hit kernel, by walk_plain: t,
+    < _BIG if occluded, and (box tests, triangle tests) per ray
+    with_stats."""
+    t, _, n_int, n_leaf = walk_plain(bvh, o, d, tmin, tmax, any_hit=True)
+    return (t, *_tests(bvh, n_int, n_leaf)) if with_stats else t
 
 
 _lib = None

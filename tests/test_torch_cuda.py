@@ -67,8 +67,14 @@ def test_kernel_matches_twin_on_card(cuda, width):
     torch.cuda.synchronize()
     assert wide_bvh.LAUNCHES["closest"] == before["closest"] + 1
     assert wide_bvh.LAUNCHES["any"] == before["any"] + 1
-    tp, idp, attrp = wide_bvh.closest_hit_triangles_plain(bvh, o, d, tmin,
-                                                          tmax)
+    # the plain version walks the same tree in the same order: equal
+    for a, b in zip((t, ids, attr), wide_bvh.closest_hit_triangles_plain(
+            bvh, o, d, tmin, tmax)):
+        assert torch.equal(a, b)
+    assert torch.equal(occ, wide_bvh.any_hit_triangles_plain(bvh, o, d,
+                                                             tmin, tmax))
+    # the brute-force oracle: the same t, ids up to ties
+    tp, idp, attrp = wide_bvh.brute_force_triangles(bvh, o, d, tmin, tmax)
     hit = tp < BIG
     assert torch.equal(t < BIG, hit) and 0 < int(hit.sum()) < 4096
     assert torch.equal(t[hit], tp[hit])         # one arithmetic, one order

@@ -8,7 +8,7 @@ counts are ops/wide_bvh.walk_plain's. Against the JAX package, each
 traversal of a sponza_proxy render is run through the Pallas kernel's
 with_stats mode one ray per 256-lane tile (the JAX render itself bills a
 tile's visits to all 256 of its rays, so its totals are not per ray),
-at the bar of tests/test_torch_stats.py."""
+at the bars of tests/test_torch_stats.py."""
 
 import pytest
 
@@ -117,7 +117,8 @@ def test_render_counters_against_pallas(traversals):
     for c in traversals:
         o, d, tmin, tmax = (x.numpy() for x in c["rays"])
         out = [x.numpy() for x in c["out"]]
-        assert_counts_agree(4, c["any_hit"], out[0], out[-2], out[-1],
+        case = "sponza_proxy " + ("shadow" if c["any_hit"] else "primary")
+        assert_counts_agree(case, 4, c["any_hit"], out[0], out[-2], out[-1],
                             *pallas_counts(jbvh, o, d, tmin, tmax,
                                            c["any_hit"]))
     assert int(stats.box_tests) == sum(int(c["out"][-2].sum())

@@ -2,7 +2,8 @@
 
 On CPU tensors the counters come from ops/wide_bvh.walk_plain, the
 kernel's own walk in plain PyTorch. It is held:
-- against the brute-force twin: the same hits;
+- against the brute-force oracle (wide_bvh.brute_force_triangles): the
+  same hits;
 - against the CUDA kernel's walk compiled for the host with g++
   (traverse_wide.cu's traverse_host): t, id and both visit counts equal,
   for W=4 and W=8, closest-hit and any-hit;
@@ -34,16 +35,21 @@ from test_torch_traverse import (BIG, MESHES, build_both,  # noqa: E402,F401
 # finds no occluder) passes every slab test the Pallas walk passes, so it
 # visits at least as much: an any-hit walk always (its interval never
 # shrinks), a closest-hit walk nearly always (an early hit in a padded
-# slot may cull a node later). Measured shares of such walks with equal
-# counts: 96.9-98.5% on tri3000 (below), 89.5% of sponza_proxy's primary
-# rays and 52.3% of its shadow rays, whose walks start on a surface that
-# the padded boxes of neighbouring leaves take in
-# (tests/test_torch_render_stats.py); the padding added 0.4% and 5.1% to
-# their internal visits, 1.3% and 37.6% to their leaf visits. Of the
-# occluded any-hit rays 96.4-100% retire late as modelled.
-EXACT_SHARE = 0.45      # full walks with equal counts
+# slot may cull a node later). Each case has its own bar on the share of
+# such walks with equal counts and on how far the padding may raise the
+# internal and leaf visit totals, set just past what was measured:
+# - tri3000 (below): 96.9-98.5% equal; totals up 0-0.6%;
+# - sponza_proxy's primary rays (tests/test_torch_render_stats.py): 89.5%
+#   equal; internal visits up 0.4%, leaf visits 1.3%;
+# - its shadow rays, whose walks start on a surface that the padded boxes
+#   of neighbouring leaves take in: 52.3% equal; up 5.1% and 37.6%.
+# Of the occluded any-hit rays 96.4-100% retire late as modelled.
+BARS = {                # (share of full walks equal, padded excess)
+    "tri3000": (0.95, 0.02),
+    "sponza_proxy primary": (0.85, 0.03),
+    "sponza_proxy shadow": (0.45, 0.45),
+}
 AT_LEAST_SHARE = 0.99   # closest-hit walks visiting at least as much
-MAX_EXCESS = 0.5        # padded visit totals over the Pallas kernel's
 LATE_SHARE = 0.9        # occluded rays retiring as modelled
 
 
@@ -57,7 +63,7 @@ def test_walk_plain_matches_brute_force(name, width):
     *_, tbvh = build_both(name, width)
     r = rays(80 + width, 1024)
     t, ids, n_int, n_leaf = twb.walk_plain(tbvh, *as_t(r))
-    tp, idp, _ = twb.closest_hit_triangles_plain(tbvh, *as_t(r))
+    tp, idp, _ = twb.brute_force_triangles(tbvh, *as_t(r))
     check_against_brute(t.numpy(), ids.numpy(), tp.numpy(), idp.numpy())
     both = (t < BIG) & (tp < BIG)
     assert torch.equal(t[both], tp[both])     # one arithmetic, one order
@@ -109,9 +115,12 @@ def pallas_counts(jbvh, o, d, tmin, tmax, any_hit):
     return pick(h.hit), pick(box), pick(tri)
 
 
-def assert_counts_agree(width, any_hit, t, box, tri, jhit, jbox, jtri):
+def assert_counts_agree(case, width, any_hit, t, box, tri, jhit, jbox,
+                        jtri):
     """The port's per-ray tests (t, box, tri) against the Pallas kernel's
-    one-ray-per-tile ones, allowing the differences set out above."""
+    one-ray-per-tile ones, allowing the differences set out above at the
+    bars of BARS[case]."""
+    exact_share, max_excess = BARS[case]
     hit = t < BIG
     np.testing.assert_array_equal(hit, jhit)
     # visits: W box tests per internal visit, K triangle tests per leaf
@@ -126,10 +135,11 @@ def assert_counts_agree(width, any_hit, t, box, tri, jhit, jbox, jtri):
           f"walks with equal counts, {at_least:.4f} with at least as many; "
           f"internal visits {p_int[full].sum()} vs {j_int[full].sum()}, "
           f"leaf visits {p_leaf[full].sum()} vs {j_leaf[full].sum()}")
-    assert share >= EXACT_SHARE
+    assert share >= exact_share
     assert at_least == 1.0 if any_hit else at_least >= AT_LEAST_SHARE
     for p, j in ((p_int, j_int), (p_leaf, j_leaf)):
-        assert j[full].sum() <= p[full].sum() <= (1 + MAX_EXCESS) * j[full].sum()
+        top = (1 + max_excess) * j[full].sum()
+        assert j[full].sum() <= p[full].sum() <= top
     if any_hit and hit.any():
         # an occluded ray: the Pallas walk counts one more internal node
         # (or none, when its stack held only leaves) and the leaves popped
@@ -152,7 +162,7 @@ def test_counts_against_pallas_with_stats(width, any_hit):
     out = plain(tbvh, *as_t((o, d, tmin, tmax)), with_stats=True)
     t, box, tri = (x.numpy() for x in (out[0], out[-2], out[-1]))
     assert (t < BIG).sum() > 10
-    assert_counts_agree(width, any_hit, t, box, tri,
+    assert_counts_agree("tri3000", width, any_hit, t, box, tri,
                         *pallas_counts(jbvh, o, d, tmin, tmax, any_hit))
 
 

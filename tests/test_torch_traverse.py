@@ -1,11 +1,12 @@
 """The port's wide-BVH traversal against the JAX package.
 
-The plain PyTorch twin (what the traversal runs on CPU tensors) is held
-against the Pallas kernel `_traverse4_one` in interpret mode, closest
-hit with attributes and any hit, and against the JAX brute force, at
-the bar of tests/test_bvh.py::_check_against_brute. The CUDA kernel's
-walk, compiled for the host from the same source, is held against the
-twin. The kernel itself runs only on a GPU: tests/test_torch_cuda.py."""
+The plain PyTorch version (ops/wide_bvh.walk_plain, what the traversal
+runs on CPU tensors) is held against the Pallas kernel `_traverse4_one`
+in interpret mode, closest hit with attributes and any hit, and against
+the JAX brute force, at the bar of tests/test_bvh.py::_check_against_brute.
+The CUDA kernel's walk, compiled for the host from the same source, is
+held against the port's brute-force oracle (wide_bvh.brute_force_triangles).
+The kernel itself runs only on a GPU: tests/test_torch_cuda.py."""
 
 import ctypes
 import shutil
@@ -159,6 +160,9 @@ def test_twin_matches_jax_brute_force(name):
     np.testing.assert_array_equal(th.hit.numpy(), np.asarray(h.hit))
     np.testing.assert_allclose(th.t.numpy()[hit], jt[hit], rtol=1e-4,
                                atol=1e-5)
+    tb, idb, _ = twb.brute_force_triangles(tbvh, *(torch.as_tensor(x)
+                                                   for x in r))
+    check_against_brute(tb.numpy(), idb.numpy(), t, ids)
 
 
 def test_wrapper_routes_cpu_tensors_to_twin():
@@ -232,7 +236,8 @@ def test_kernel_walk_matches_twin(host_walk, name, width):
     r = rays(40 + width, 2048)
     t, ids, attr, err = host_walk(tbvh, *r, any_hit=False)
     assert err == 0
-    tp, idp, attrp = twin(tbvh, r)
+    tp, idp, attrp = (x.numpy() for x in twb.brute_force_triangles(
+        tbvh, *(torch.as_tensor(x) for x in r)))
     same = check_against_brute(t, ids, tp, idp)
     # one arithmetic in one order: bit-equal wherever both hit
     both = (t < BIG) & (tp < BIG)
