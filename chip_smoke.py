@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout and
-holds it against a brute-force oracle on the card (phase 3); drives the
+Builds the port's CUDA kernels from the sources in this checkout, one
+nvcc each, all started together (phase 2), and holds the wide-tree
+kernel against a brute-force oracle on the card (phase 3); drives the
 port's main path (sponza_proxy at 512x512, trace depth 4, forward and
 backward of sum(render_hdr) with respect to the material table kd, as
 bench.py does for the JAX package; once as registered and once with its
@@ -15,7 +16,16 @@ kernel, with and without its counters (K3), against its plain PyTorch
 version walk_plain on every ray of the main path and times both (phase
 6), and on phase 3's rays (phase 7); drives the command line's `render`
 on the card at 512x512 with --stats, Whitted and path-traced through the
-thin lens at 16 spp, each as registered and lit (phase 8).
+thin lens at 16 spp, each as registered and lit (phase 8); and runs
+the A/B accelerator kinds on lit sponza_proxy (phase 9): (a) the fwd+bwd
+step with "pallas_sah" (the binary tree, kernel K5) and "pallas" (the
+Morton-block brute force, K6) against the "auto" step, (b) K5 in its
+three modes and K6 against their plain versions on the main path's
+primary and shadow rays, timed with their bounds, and against the brute
+force, (c) a collect_stats render through K5 and traversal_stats, (d) a
+forward render with each of "block", "bvh", "packet" and
+"pallas_forest" against auto's, and (e) the W=8 kernel (K4) on the
+400k-triangle proxy, timed with its bound.
 Each phase prints its own lines; any failure raises and exits non-zero.
 The second-to-last line is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it
@@ -53,6 +63,9 @@ F32_OPS_S = 67e12
 OPS_PER_SLOT = 37    # per axis 8 add/sub/mul and 4 min/max; 1 compare
 OPS_PER_TRI = 53     # 44 mul/add/div (3 x 11 + 6 + 1 + 3 + 1), 9 cmp/select
 OPS_PER_RAY = 12     # 3 reciprocals and the 9 operations of the moment
+OPS_PER_BOX = 25     # tri_blocks.cu's slab: per axis 4 sub/mul, 4 min/max
+KINDS_RES = 512      # phase 9(d)'s renders
+FOREST_CHUNK = 65_536
 
 
 def log(*args):
@@ -211,14 +224,17 @@ def compare_oracle(label, bvh, o, d, tmin, tmax):
         f"bit_equal_t={bool(torch.equal(t[both], tp[both]))}")
 
 
-def compare_plain(label, bvh, args, errs):
-    """The kernel without and with its counters (K3) against its plain
-    version, walk_plain, on the same rays, in both modes: t, id,
+def compare_plain(label, bvh, args, errs, wb=None):
+    """The kernel without and with its counters (K3; K5's with a binary
+    tree and wb = ops.binary_bvh) against its plain version (walk_plain,
+    walk_binary_plain) on the same rays, in both modes: t, id,
     attributes and visit counts all equal. Folds the differences (zero
     unless it raises) into errs and returns each mode's (internal, leaf)
     visits summed over the rays."""
     import torch
-    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    if wb is None:
+        from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    width = getattr(bvh, "width", 2)
     visits = {}
     for any_hit in (False, True):
         mode = "any" if any_hit else "closest"
@@ -243,15 +259,16 @@ def compare_plain(label, bvh, args, errs):
         d_box = int((box - p_box).abs().max())
         d_tri = int((tri - p_tri).abs().max())
         if d_box or d_tri:
-            raise AssertionError(f"{label} {mode}: K3 counts differ from "
-                                 f"walk_plain's (box {d_box}, tri {d_tri})")
+            raise AssertionError(f"{label} {mode}: the kernel's counts "
+                                 "differ from the plain walk's (box "
+                                 f"{d_box}, tri {d_tri})")
         errs[mode] = max(errs[mode], d_t)
         errs["stats"] = max(errs["stats"], d_t, d_box, d_tri)
-        visits[mode] = (int(p_box.sum(dtype=torch.int64)) // bvh.width,
+        visits[mode] = (int(p_box.sum(dtype=torch.int64)) // width,
                         int(p_tri.sum(dtype=torch.int64)) // wb.K)
         n = args[0].shape[0]
-        log(f"  {label} {mode}: W={bvh.width} {n} rays, hits "
-            f"{int(hit.sum())}; kernel = walk_plain in t, id, attributes "
+        log(f"  {label} {mode}: W={width} {n} rays, hits "
+            f"{int(hit.sum())}; kernel = plain walk in t, id, attributes "
             f"and counts, with and without counting; per ray "
             f"{float(box.double().mean()):.3f} box and "
             f"{float(tri.double().mean()):.3f} triangle tests")
@@ -314,17 +331,23 @@ def phase_device():
 
 
 def phase_build():
-    from cse168_raytracer_tpu_torch.ops import cuda_build, sah, wide_bvh
+    """Phase 2: every kernel source built at once, one nvcc each, and
+    loaded; the native SAH builder."""
+    from cse168_raytracer_tpu_torch.ops import (binary_bvh, cuda_build, sah,
+                                                tri_blocks, wide_bvh)
     t0 = time.perf_counter()
-    wide_bvh._kernel_lib()
-    info = cuda_build.BUILD_INFO.get("traverse_wide.cu")
-    build_s = info["seconds"] if info else 0.0
-    log(f"[2 build] traverse_wide.cu: " + (
-        f"nvcc {build_s:.2f} s" if info else
-        f"already built in {cuda_build.BUILD}") +
-        f" (load {time.perf_counter() - t0:.2f} s)")
-    if info:
-        for line in info["log"].splitlines():
+    cuda_build.build_all()
+    for mod in (wide_bvh, binary_bvh, tri_blocks):
+        mod._kernel_lib()
+    build_s = time.perf_counter() - t0
+    log(f"[2 build] {len(cuda_build.SOURCES)} kernel sources built and "
+        f"loaded in {build_s:.2f} s")
+    for src in cuda_build.SOURCES:
+        info = cuda_build.BUILD_INFO.get(src)
+        log(f"[2 build] {src}: " + (f"nvcc {info['seconds']:.2f} s" if info
+                                    else f"already built in "
+                                         f"{cuda_build.BUILD}"))
+        for line in (info["log"] if info else "").splitlines():
             if "registers" in line or "spill" in line:
                 log("   ptxas:", line.strip())
     sah.load_native()
@@ -336,7 +359,8 @@ def phase_kernel_vs_oracle(device):
     """Phase 3: the kernel against the brute-force oracle on random
     meshes and on 8,192 of the main path's primary and shadow rays, on
     sponza_proxy's W=4 tree and a 400k-triangle W=8 one. Returns the
-    (label, tree, rays) cases for phase 7."""
+    (label, tree, rays) cases for phase 7 and the sponza_proxy rays for
+    phase 9."""
     import torch
     from cse168_raytracer_tpu_torch.config import RenderConfig
     from cse168_raytracer_tpu_torch.models.geometry import pack_triangles
@@ -375,6 +399,8 @@ def phase_kernel_vs_oracle(device):
     compare_oracle("sponza_proxy shadow", scene.accel, so, sd, 0.0, stmax)
     cases += [("sponza_proxy primary", scene.accel, (o, d, 0.0, 1e12)),
               ("sponza_proxy shadow", scene.accel, (so, sd, 0.0, stmax))]
+    sponza_rays = {"primary": (o, d, 0.0, 1e12),
+                   "shadow": (so, sd, 0.0, stmax)}
 
     mb = MaterialBuilder()
     white = mb.phong()
@@ -393,7 +419,7 @@ def phase_kernel_vs_oracle(device):
     compare_oracle("sponza_proxy 400k shadow", big.accel, so, sd, 0.0, stmax)
     cases += [("sponza_proxy 400k primary", big.accel, (o, d, 0.0, 1e12)),
               ("sponza_proxy 400k shadow", big.accel, (so, sd, 0.0, stmax))]
-    return cases
+    return cases, sponza_rays
 
 
 def lit_sponza(scene):
@@ -751,11 +777,430 @@ def phase_cli(device, card):
     return runs, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the A/B accelerator kinds
+# ---------------------------------------------------------------------------
+
+def zero_launches(*mods):
+    for mod in mods:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+
+
+def kinds_scene(device):
+    """sponza_proxy lit, at the main path's size, without an accelerator."""
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.scenes import build
+    cfg = RenderConfig(width=RES, height=RES, trace_depth=DEPTH)
+    scene, static, cam, cfg = build("sponza_proxy", cfg, device=device)
+    return lit_sponza(scene), static, cam, cfg
+
+
+def timed_attach(scene, kind, **kw):
+    import torch
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    t0 = time.perf_counter()
+    s = attach_accel(scene, kind, **kw)
+    torch.cuda.synchronize()
+    return s, time.perf_counter() - t0
+
+
+def grad_rel(g, ref):
+    return float((g - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+
+
+def phase_kind_steps(device, lit, static, cam, cfg):
+    """Phase 9(a): the fwd+bwd step with kind "pallas_sah" (kernel K5) and
+    "pallas" (K6), each timed over 5 steps after a warm-up, against the
+    "auto" step's image and kd gradient. Returns the scenes and numbers."""
+    from cse168_raytracer_tpu_torch.ops import binary_bvh, tri_blocks
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    n_iter = 5
+    auto, _ = timed_attach(lit, "auto")
+    ref_hdr, ref_grad, _ = fwd_bwd(auto, static, cam, cfg)
+    out = {"auto": auto}
+    for kind, mod in (("pallas_sah", binary_bvh), ("pallas", tri_blocks)):
+        s, build_s = timed_attach(lit, kind)
+        zero_launches(mod, wb)
+        hdr, grad, stats, ms, host_ms = timed_steps(s, static, cam, cfg,
+                                                    n_iter)
+        launches = dict(mod.LAUNCHES)
+        share, g_rel = pixel_agreement(hdr, ref_hdr), grad_rel(grad, ref_grad)
+        per_step = {k: v / (1 + n_iter) for k, v in launches.items()}
+        log(f"[9a steps] {kind}: accel build {build_s:.3f} s; "
+            f"{1 + n_iter} fwd+bwd steps at {RES}x{RES}, depth {DEPTH}, lit; "
+            f"per step {ms:.3f} ms (CUDA events), {host_ms:.3f} ms (host "
+            f"clock); {share * 100:.3f}% of pixels within rtol 1e-4/atol "
+            f"1e-5 of auto's; kd-gradient max rel diff {g_rel:.3g}; "
+            f"launches {launches} ({per_step} per step; traverse_wide "
+            f"{dict(wb.LAUNCHES)})")
+        if not (bool(hdr.isfinite().all()) and bool(grad.isfinite().all())):
+            raise AssertionError(f"{kind} step: non-finite image or gradient")
+        if share < 0.999 or g_rel > 1e-4:
+            raise AssertionError(f"{kind} step disagrees with auto's")
+        if sum(launches.values()) < 1 or sum(wb.LAUNCHES.values()):
+            raise AssertionError(f"{kind} step did not go through its kernel")
+        out[kind] = s
+        out[kind + " step"] = {"ms": ms, "host_ms": host_ms,
+                               "launches": launches, "build_s": build_s}
+    return out
+
+
+def plain_rays(label, fn, args, n):
+    """How many of the n rays the plain version fn(*args) takes within
+    PLAIN_BUDGET_S: all, or PLAIN_SUBSET when PLAIN_SUBSET of them,
+    timed, say that all would take longer."""
+    import torch
+    if n <= PLAIN_SUBSET:
+        return n
+    sub = tuple(a[:PLAIN_SUBSET] if torch.is_tensor(a) else a for a in args)
+    est_s = time_cuda(lambda: fn(*sub), 1, warm=False) / 1e3 \
+        * n / PLAIN_SUBSET
+    if est_s <= PLAIN_BUDGET_S:
+        return n
+    log(f"  {label}: the plain version on all {n} rays would take ~"
+        f"{est_s:.0f} s, over its {PLAIN_BUDGET_S:.0f} s budget: held on "
+        f"the first {PLAIN_SUBSET} rays")
+    return PLAIN_SUBSET
+
+
+def head(args, m):
+    import torch
+    return tuple(a[:m] if torch.is_tensor(a) else a for a in args)
+
+
+def block_work(blocks, n, pairs):
+    """Bytes and f32 operations of one K6 launch over n rays whose tiles
+    pass `pairs` (tile, block) box tests: every ray's o, d, tmin, tmax
+    read and its t and id written once, the block arrays read once; 256
+    slab tests per block per tile, 256 x 256 triangle tests per pair."""
+    from cse168_raytracer_tpu_torch.ops.tri_blocks import BLOCK, RAY_TILE
+    tiles = -(-n // RAY_TILE)
+    nbytes = n * (32 + 8) + sum(x.numel() * x.element_size()
+                                for x in (blocks.w6, blocks.w4, blocks.aabb))
+    ops = (n * OPS_PER_RAY + tiles * blocks.num_blocks * RAY_TILE
+           * OPS_PER_BOX + pairs * RAY_TILE * BLOCK * OPS_PER_TRI)
+    return {"bytes": nbytes, "ops": ops}
+
+
+def binary_work(bvh, n, any_hit, counting, internal, leaves):
+    """traversal_work for the binary tree: 2 slab tests per internal
+    visit, no attribute rows."""
+    from cse168_raytracer_tpu_torch.ops.wide_bvh import K
+    out_b = (4 if any_hit else 8) + (8 if counting else 0)
+    nbytes = n * (32 + out_b) + sum(x.numel() * x.element_size()
+                                    for x in (bvh.cbox, bvh.leafW))
+    ops = (n * OPS_PER_RAY + internal * 2 * OPS_PER_SLOT
+           + leaves * K * OPS_PER_TRI)
+    return {"bytes": nbytes, "ops": ops}
+
+
+def tri_rows(pack, ids):
+    """The triangles that ids name in `pack`, as their vertex rows, so
+    that the ids of two orderings of one mesh compare."""
+    import torch
+    ids = ids.long()
+    return torch.cat([pack.v0[ids], pack.e1[ids], pack.e2[ids]], 1)
+
+
+def compare_brute(label, kind, s, auto, args, t, ids, occ=None):
+    """A kind's closest hits (t, ids into s.tris) and occlusion against
+    wide_bvh.brute_force_triangles on auto's W=4 tree: K5 (BOX_PAD-
+    widened like the oracle's tree walk) with equal hit masks; K6, whose
+    block cull is not widened as the TPU kernel's is not, on 99.9% of
+    rays. t equal where both hit, the triangle the same but at ties."""
+    import torch
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    tp, idp, _ = wb.brute_force_triangles(auto.accel, *args)
+    hit, hitp = t < 3e37, tp < 3e37
+    both = hit & hitp
+    same_t = both & (t == tp)
+    same_tri = same_t & (tri_rows(s.tris, ids) == tri_rows(auto.tris, idp)
+                         ).all(1)
+    n_both = max(int(both.sum()), 1)
+    agree = float(hit.eq(hitp).float().mean())
+    occ_ok = occ is None or torch.equal(occ, hitp)
+    log(f"  {label}, {kind} vs brute force: {args[0].shape[0]} rays, hits "
+        f"{int(hit.sum())} / {int(hitp.sum())}; hit masks agree on "
+        f"{agree * 100:.3f}%; t equal on {int(same_t.sum())} of "
+        f"{int(both.sum())} shared hits; same triangle on "
+        f"{float(same_tri.sum()) / n_both * 100:.3f}%"
+        + ("" if occ is None else f"; any-hit = brute force: {occ_ok}"))
+    exact = kind == "pallas_sah"
+    if (agree < (1.0 if exact else 0.999) or not occ_ok
+            or int(same_t.sum()) < (1.0 if exact else 0.999) * n_both
+            or float(same_tri.sum()) <= 0.99 * n_both):
+        raise AssertionError(f"{label}: {kind} disagrees with brute force")
+
+
+def phase_kind_kernels(device, steps, cam, sponza_rays):
+    """Phase 9(b): K5 in its three modes and K6 against their plain
+    versions on all the main path's primary rays and the lit shadow rays
+    (or PLAIN_SUBSET of them, see plain_rays): t, id and counts equal;
+    each timed beside its plain version, with its bound. Then K5 and K6
+    against the brute force on phase 3's 8,192 rays."""
+    import torch
+    from cse168_raytracer_tpu_torch.ops import binary_bvh as bb
+    from cse168_raytracer_tpu_torch.ops import tri_blocks as tb
+    sah, blocks, auto = steps["pallas_sah"], steps["pallas"], steps["auto"]
+    bvh = sah.accel
+    saved = (dict(bb.LAUNCHES), dict(tb.LAUNCHES))
+    o, d = primary_rays(cam, RES, RES, device)
+    so, sd, stmax = shadow_rays(auto, o, d)
+    rays = {"primary": (o, d, 0.0, 1e12), "lit shadow": (so, sd, 0.0, stmax)}
+    log(f"[9b K5] binary SAH tree: {bvh.n_nodes} internal nodes, "
+        f"{bvh.n_leaves} leaves, stack depth {bvh.stack_depth}")
+    errs = {"closest": 0.0, "any": 0.0, "stats": 0.0}
+    visits, subset = {}, {}
+    for key, args in rays.items():
+        m = plain_rays(f"K5 {key}", lambda *a: bb.walk_binary_plain(bvh, *a),
+                       args, args[0].shape[0])
+        subset[key] = m
+        visits[key] = compare_plain(f"K5 {key} rays", bvh, head(args, m),
+                                    errs, wb=bb)
+    out = {}
+    for mode, key in (("closest", "primary"), ("any", "lit shadow")):
+        args, m = rays[key], subset[key]
+        kern = bb.any_hit_triangles if mode == "any" else \
+            bb.closest_hit_triangles
+        plain = bb.any_hit_triangles_plain if mode == "any" else \
+            bb.closest_hit_triangles_plain
+        n = args[0].shape[0]
+        ms = time_cuda(lambda: kern(bvh, *args), 10)
+        stats_ms = time_cuda(lambda: kern(bvh, *args, with_stats=True), 10)
+        plain_ms = time_cuda(lambda: plain(bvh, *head(args, m)), 2)
+        stats_plain_ms = time_cuda(
+            lambda: plain(bvh, *head(args, m), with_stats=True), 2)
+        internal, leaves = visits[key][mode]
+        # the visits scale to all n rays when the plain walk took a subset
+        internal, leaves = internal * n // m, leaves * n // m
+        w = binary_work(bvh, n, mode == "any", False, internal, leaves)
+        ws = binary_work(bvh, n, mode == "any", True, internal, leaves)
+        out[mode] = {"ms": ms, "rays": n, "plain_ms": plain_ms,
+                     "plain_rays": m, **bound(w)}
+        out["stats_" + mode] = {"ms": stats_ms, "plain_ms": stats_plain_ms,
+                                "work": ws}
+        log(f"[9b K5] {key} rays, {mode}: kernel {ms:.3f} ms, with counters "
+            f"{stats_ms:.3f} ms, for {n} rays; walk_binary_plain "
+            f"{plain_ms:.1f} ms ({stats_plain_ms:.1f} ms with counts) for "
+            f"{m} rays; {internal} internal and {leaves} leaf visits "
+            f"({internal / n:.3f} and {leaves / n:.3f} per ray)")
+        log(f"[9b bound] K5 {mode}: {bound_line(w)}; kernel {ms:.3f} ms = "
+            f"{out[mode]['bound_ms'] / ms * 100:.2f}% of bound")
+    both = [out.pop("stats_" + m) for m in ("closest", "any")]
+    total = {k: sum(b["work"][k] for b in both) for k in both[0]["work"]}
+    out["stats"] = {"ms": sum(b["ms"] for b in both),
+                    "plain_ms": sum(b["plain_ms"] for b in both),
+                    "rays": 2 * RES * RES,
+                    "plain_rays": subset["primary"] + subset["lit shadow"],
+                    **bound(total)}
+    log(f"[9b bound] K5 counting, both modes: {bound_line(total)}; kernels "
+        f"{out['stats']['ms']:.3f} ms")
+    out["errs"] = errs
+    # traversal_stats on all the primary rays must give these counts
+    out["visits_primary"] = (visits["primary"]["closest"]
+                             if subset["primary"] == RES * RES else None)
+
+    # K6: closest hit (any-hit is the closest hit) on both ray sets
+    k6 = {"err": 0.0}
+    for key, args in rays.items():
+        n = args[0].shape[0]
+        m = plain_rays(f"K6 {key}",
+                       lambda *a: tb.closest_hit_plain(blocks.accel, *a),
+                       args, n)
+        t, ids = tb.closest_hit(blocks.accel, *args)
+        tp, idp, pairs = tb.closest_hit_plain(blocks.accel, *head(args, m),
+                                              count_pairs=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(t[:m], tp) and torch.equal(ids[:m], idp)):
+            raise AssertionError(f"K6 {key}: kernel and plain version differ "
+                                 f"on {int((t[:m] != tp).sum())} t and "
+                                 f"{int((ids[:m] != idp).sum())} ids")
+        hit = tp < 3e37
+        log(f"  K6 {key} rays: {m} rays, hits {int(hit.sum())}; kernel = "
+            f"plain version in t and id; {pairs} (tile, block) pairs of "
+            f"{-(-m // tb.RAY_TILE) * blocks.accel.num_blocks} passed the "
+            "cull")
+        if key != "primary":
+            continue
+        ms = time_cuda(lambda: tb.closest_hit(blocks.accel, *args), 10)
+        plain_ms = time_cuda(lambda: tb.closest_hit_plain(
+            blocks.accel, *head(args, m)), 1)
+        pairs = pairs * n // m
+        w = block_work(blocks.accel, n, pairs)
+        k6.update({"ms": ms, "rays": n, "plain_ms": plain_ms,
+                   "plain_rays": m, **bound(w)})
+        log(f"[9b K6] primary rays: kernel {ms:.3f} ms for {n} rays; plain "
+            f"version {plain_ms:.1f} ms for {m} rays; {pairs} (tile, block) "
+            f"pairs passed the cull ({pairs / -(-n // tb.RAY_TILE):.3f} "
+            f"blocks per 256-ray tile of {blocks.accel.num_blocks})")
+        log(f"[9b bound] K6: {bound_line(w)}; kernel {ms:.3f} ms = "
+            f"{k6['bound_ms'] / ms * 100:.2f}% of bound")
+    out["k6"] = k6
+
+    log("[9b brute force] phase 3's sponza_proxy rays")
+    for key, args in sponza_rays.items():
+        t, ids = bb.closest_hit_triangles(bvh, *args)
+        occ = bb.any_hit_triangles(bvh, *args) < 3e37
+        compare_brute(key, "pallas_sah", sah, auto, args, t, ids, occ)
+        t, ids = tb.closest_hit(blocks.accel, *args)
+        compare_brute(key, "pallas", blocks, auto, args, t, ids)
+    bb.LAUNCHES.update(saved[0])
+    tb.LAUNCHES.update(saved[1])
+    return out
+
+
+def phase_kind_stats(sah, static, cam, cfg, device, k5):
+    """Phase 9(c): a forward render with collect_stats through "pallas_sah"
+    (K5's counting mode on every traversal), and traversal_stats on the
+    primary rays, which must give phase 9(b)'s K5 counts."""
+    import torch
+    from cse168_raytracer_tpu_torch.ops import binary_bvh as bb
+    from cse168_raytracer_tpu_torch.ops.stats import traversal_stats
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    zero_launches(bb)
+    with torch.no_grad():
+        hdr, st = render_hdr(sah, static, cam, cfg.replace(collect_stats=True))
+    torch.cuda.synchronize()
+    launches = dict(bb.LAUNCHES)
+    n_rays = (int(st.primary_rays) + int(st.shadow_rays)
+              + int(st.secondary_rays))
+    o, d = primary_rays(cam, RES, RES, device)
+    ts = traversal_stats(sah.accel, o, d)
+    log(f"[9c stats] pallas_sah render at {RES}x{RES} with collect_stats: "
+        f"{n_rays} rays, {int(st.box_tests) / n_rays:.3f} box and "
+        f"{int(st.tri_tests) / n_rays:.3f} triangle tests per ray; launches "
+        f"{launches}; traversal_stats on the primary rays "
+        f"{float(ts.box_tests_per_ray):.3f} box and "
+        f"{float(ts.tri_tests_per_ray):.3f} triangle tests per ray")
+    if not bool(hdr.isfinite().all()) or int(st.box_tests) <= 0 \
+            or int(st.tri_tests) <= 0:
+        raise AssertionError("pallas_sah stats render: image or counters")
+    if launches["stats_closest"] < 1 or launches["stats_any"] < 1 \
+            or launches["closest"] + launches["any"]:
+        raise AssertionError("the stats render did not count through K5")
+    if k5["visits_primary"] is not None:
+        internal, leaves = k5["visits_primary"]
+        if float(ts.box_tests_per_ray) != 2 * internal / (RES * RES) or \
+                float(ts.tri_tests_per_ray) != bb.K * leaves / (RES * RES):
+            raise AssertionError("traversal_stats differs from K5's counts")
+    return launches
+
+
+def phase_other_kinds(lit, static, cam, cfg, auto):
+    """Phase 9(d): one forward render with each plain-PyTorch kind
+    (block, bvh, packet) and with pallas_forest (Morton chunks of
+    FOREST_CHUNK triangles through K1/K2) at KINDS_RES, against auto's
+    image at the same size."""
+    import torch
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    kcfg = cfg.replace(width=KINDS_RES, height=KINDS_RES)
+    log(f"[9d kinds] forward renders at {KINDS_RES}x{KINDS_RES}, depth "
+        f"{DEPTH}, lit")
+    with torch.no_grad():
+        ref, _ = render_hdr(auto, static, cam, kcfg)
+    out = {}
+    for kind, kw in (("block", {}), ("bvh", {}), ("packet", {}),
+                     ("pallas_forest", {"chunk_tris": FOREST_CHUNK})):
+        s, build_s = timed_attach(lit, kind, **kw)
+        zero_launches(wb)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            hdr, _ = render_hdr(s, static, cam, kcfg)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        share = pixel_agreement(hdr, ref)
+        extra = (f"; {len(s.accel.chunks)} chunks, traverse_wide launches "
+                 f"{dict(wb.LAUNCHES)}" if kind == "pallas_forest" else "")
+        log(f"[9d kinds] {kind}: accel build {build_s:.3f} s, render "
+            f"{sec:.3f} s (host clock, first run); {share * 100:.3f}% of "
+            f"pixels within rtol 1e-4/atol 1e-5 of auto's" + extra)
+        if share < 0.999 or not bool(hdr.isfinite().all()):
+            raise AssertionError(f"{kind} render disagrees with auto's")
+        if kind == "pallas_forest" and (len(s.accel.chunks) < 2 or min(
+                wb.LAUNCHES["closest"], wb.LAUNCHES["any"]) < 1):
+            raise AssertionError("pallas_forest did not walk its chunks "
+                                 "through K1/K2")
+        out[kind] = {"render_s": sec, "build_s": build_s}
+        del s
+    return out
+
+
+def phase_k4(device, cam, cfg):
+    """Phase 9(e): kernel K4, the W=8 tree (the >300k branch of auto), on
+    _make_sponza_proxy(target_tris=400_000) lit: a fwd+bwd step at the
+    main path's size counts its launches; on all 262,144 primary rays the
+    closest+attr kernel equals walk_plain and is timed, with its bound."""
+    import torch
+    from cse168_raytracer_tpu_torch.models.geometry import pack_triangles
+    from cse168_raytracer_tpu_torch.models.lights import LIGHT_POINT
+    from cse168_raytracer_tpu_torch.models.materials import MaterialBuilder
+    from cse168_raytracer_tpu_torch.models.scene import make_scene
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    from cse168_raytracer_tpu_torch.scenes.registry import _make_sponza_proxy
+    mb = MaterialBuilder()
+    white = mb.phong(kd=(0.8, 0.8, 0.8))
+    big, static = make_scene(
+        tris=pack_triangles([(_make_sponza_proxy(target_tris=400_000),
+                              white)], device=device),
+        materials=mb.build(device),
+        lights=[dict(kind=LIGHT_POINT, position=LIT_LIGHT,
+                     wattage=200.0)], device=device)
+    big, build_s = timed_attach(big, "auto")
+    bvh = big.accel
+    if bvh.width != 8:
+        raise AssertionError("the 400k-triangle scene did not get W=8")
+    zero_launches(wb)
+    hdr, grad, _ = fwd_bwd(big, static, cam, cfg)
+    torch.cuda.synchronize()
+    launches = dict(wb.LAUNCHES)
+    if launches["closest"] < 1 or launches["any"] < 1:
+        raise AssertionError("the W=8 step launched no K4 kernel")
+    if not (bool(hdr.isfinite().all()) and bool(grad.abs().sum() > 0)):
+        raise AssertionError("the W=8 step: image or gradient")
+    o, d = primary_rays(cam, RES, RES, device)
+    args = (o, d, 0.0, 1e12)
+    errs = {"closest": 0.0, "any": 0.0, "stats": 0.0}
+    visits = compare_plain("K4 primary rays", bvh, args, errs)
+    n = o.shape[0]
+    ms = time_cuda(lambda: wb.closest_hit_triangles(bvh, *args), 10)
+    plain_ms = time_cuda(lambda: wb.closest_hit_triangles_plain(bvh, *args),
+                         2)
+    internal, leaves = visits["closest"]
+    w = traversal_work(bvh, n, False, False, internal, leaves)
+    log(f"[9e K4] {big.tris.n_valid} tris, W=8, {bvh.n_nodes} nodes, "
+        f"{bvh.n_leaves} leaves, accel build {build_s:.3f} s; one fwd+bwd "
+        f"step launched {launches}; closest+attr kernel {ms:.3f} ms for {n} "
+        f"primary rays, walk_plain {plain_ms:.1f} ms; {internal / n:.3f} "
+        f"internal and {leaves / n:.3f} leaf visits per ray")
+    log(f"[9e bound] K4: {bound_line(w)}; kernel {ms:.3f} ms = "
+        f"{bound(w)['bound_ms'] / ms * 100:.2f}% of bound")
+    return {"ms": ms, "rays": n, "plain_ms": plain_ms, "plain_rays": n,
+            **bound(w), "launches": launches["closest"] + launches["any"],
+            "err": errs["closest"]}
+
+
+def phase_kinds(device, sponza_rays):
+    """Phase 9: the A/B accelerator kinds on the card (a)-(e)."""
+    lit, static, cam, cfg = kinds_scene(device)
+    t0 = time.perf_counter()
+    steps = phase_kind_steps(device, lit, static, cam, cfg)
+    k5 = phase_kind_kernels(device, steps, cam, sponza_rays)
+    stats_launches = phase_kind_stats(steps["pallas_sah"], static, cam, cfg,
+                                      device, k5)
+    others = phase_other_kinds(lit, static, cam, cfg, steps["auto"])
+    del steps["pallas"], steps["pallas_sah"]
+    k4 = phase_k4(device, cam, cfg)
+    log(f"[9 kinds] phase 9 took {time.perf_counter() - t0:.1f} s")
+    return steps, k5, stats_launches, others, k4
+
+
 def main():
     device, card = phase_device()
     build_s = phase_build()
     errs = {"closest": 0.0, "any": 0.0, "stats": 0.0}
-    k3_cases = phase_kernel_vs_oracle(device)
+    k3_cases, sponza_rays = phase_kernel_vs_oracle(device)
     # phase 7 runs on phase 3's trees while they are on the card; they
     # are freed before phase 4 measures the step's peak memory
     phase_k3(k3_cases, errs)
@@ -765,17 +1210,20 @@ def main():
     phase_children_on_card(device)
     timing = phase_plain_timing(device, main_run, errs)
     cli_runs, cli_launches = phase_cli(device, card)
+    steps, k5, k5_stats_launches, _, k4 = phase_kinds(device, sponza_rays)
     import torch
     src = "cse168_raytracer_tpu_torch/csrc/traverse_wide.cu"
     replaces = "cse168_raytracer_tpu/ops/pallas_bvh.py:1056"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "rays", "plain_rays")
+    src5 = "cse168_raytracer_tpu_torch/csrc/traverse_binary.cu"
+    sah_launches = steps["pallas_sah step"]["launches"]
     kernels = [
-        {"name": "traverse_wide closest+attr (W=4 and W=8)", "route": "cuda",
+        {"name": "traverse_wide closest+attr (W=4)", "route": "cuda",
          "source": src, "replaces": replaces,
          "launches": main_run["launches"]["closest"],
          "max_abs_err": errs["closest"], "library_ms": None,
          **{k: timing["closest"][k] for k in keys}},
-        {"name": "traverse_wide any-hit (W=4 and W=8)", "route": "cuda",
+        {"name": "traverse_wide any-hit (W=4)", "route": "cuda",
          "source": src, "replaces": replaces,
          "launches": main_run["launches"]["any"],
          "max_abs_err": errs["any"], "library_ms": None,
@@ -787,13 +1235,44 @@ def main():
                       + cli_launches["stats_any"]),
          "max_abs_err": errs["stats"], "library_ms": None,
          **timing["stats"]},
+        {"name": "traverse_wide W=8 tree (K4), timed closest+attr",
+         "route": "cuda", "source": src,
+         "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:1331",
+         "launches": k4["launches"], "max_abs_err": k4["err"],
+         "library_ms": None, **{k: k4[k] for k in keys}},
+        {"name": "traverse_binary closest (K5)", "route": "cuda",
+         "source": src5,
+         "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:276",
+         "launches": sah_launches["closest"],
+         "max_abs_err": k5["errs"]["closest"], "library_ms": None,
+         **{k: k5["closest"][k] for k in keys}},
+        {"name": "traverse_binary any-hit (K5)", "route": "cuda",
+         "source": src5,
+         "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:276",
+         "launches": sah_launches["any"],
+         "max_abs_err": k5["errs"]["any"], "library_ms": None,
+         **{k: k5["any"][k] for k in keys}},
+        {"name": "traverse_binary with counters, closest and any-hit (K5)",
+         "route": "cuda", "source": src5,
+         "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:254",
+         "launches": (k5_stats_launches["stats_closest"]
+                      + k5_stats_launches["stats_any"]),
+         "max_abs_err": k5["errs"]["stats"], "library_ms": None,
+         **{k: k5["stats"][k] for k in keys}},
+        {"name": "tri_blocks closest (K6)", "route": "cuda",
+         "source": "cse168_raytracer_tpu_torch/csrc/tri_blocks.cu",
+         "replaces": "cse168_raytracer_tpu/ops/pallas_intersect.py:105",
+         "launches": steps["pallas step"]["launches"]["closest"],
+         "max_abs_err": k5["k6"]["err"], "library_ms": None,
+         **{k: k5["k6"][k] for k in keys}},
     ]
     a, b = (cli_runs[("sponza_proxy", x)] for x in ("a", "b"))
     log(f"[summary] main path "
         f"{main_run['registered']['ms']:.3f} ms/step as registered, "
         f"{main_run['lit']['ms']:.3f} ms/step lit; cli render (a) "
         f"{a['ms']:.3f} ms, (b) {b['ms_per_sample']:.3f} ms/sample; "
-        f"card {card}")
+        f"pallas_sah step {steps['pallas_sah step']['ms']:.3f} ms, pallas "
+        f"step {steps['pallas step']['ms']:.3f} ms (lit); card {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,12 +77,12 @@ def render(args, built=None) -> dict:
     the HDR image, the RenderStats and the timings."""
     import torch
 
-    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.config import (RenderConfig,
+                                                   resolve_device)
     from cse168_raytracer_tpu_torch.render.image_io import write_image
     from cse168_raytracer_tpu_torch.render.integrator import render_hdr
     from cse168_raytracer_tpu_torch.render.tonemap import to_bytes, tonemap
-    from cse168_raytracer_tpu_torch.scenes.registry import (build,
-                                                            resolve_device)
+    from cse168_raytracer_tpu_torch.scenes.registry import build
 
     device = resolve_device(args.device)
     sync = (torch.cuda.synchronize if device.type == "cuda"

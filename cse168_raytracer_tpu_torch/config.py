@@ -1,17 +1,33 @@
 """Runtime render configuration.
 
 Counterpart of cse168_raytracer_tpu/config.py, copied: that file holds
-no JAX. Every reference constant keeps its value and citation.
+no JAX. Every reference constant keeps its value and citation. The
+port adds `resolve_device`, its one rule for the default device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 # Global numeric constants (Miro.h:8-20).
 MIRO_TMAX = 1e12            # Miro.h:8
 EPSILON = 1e-4              # Miro.h:9
 PI = 3.1415926535897932384626433832795028841972  # Miro.h:10
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device; None means the card. Raises when the
+    card is asked for and there is none. Every entry point and scene
+    constructor of the port resolves its device here, so none of them
+    runs on the CPU unless the caller asks for it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card "
+                           "unless asked for the CPU (device='cpu', or "
+                           "--device cpu on the command line)")
+    return device
 
 
 @dataclasses.dataclass(frozen=True)

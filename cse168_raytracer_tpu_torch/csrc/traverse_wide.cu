@@ -33,41 +33,25 @@
 // gathered once after the walk. wgmma, TMA, warp-level traversal and a
 // leaf re-layout are left for later work.
 //
-// Arithmetic: the Pluecker sums, divisions and products use the
-// round-to-nearest intrinsics in one fixed order, never a fused
-// multiply-add, so the results equal the plain PyTorch twin in
-// ops/wide_bvh.py bit for bit. Build without --use_fast_math: it would
-// change the IEEE divisions and flush denormals.
+// Arithmetic: the leaf test and the padded slab test are pluecker.cuh's,
+// shared with traverse_binary.cu and tri_blocks.cu: round-to-nearest
+// intrinsics in one fixed order, never a fused multiply-add, so the
+// results equal the plain PyTorch twin in ops/wide_bvh.py bit for bit.
 //
 // The walk is plain C++ so that it also compiles for the host
-// (g++ -x c++, where HD is `inline` and the intrinsics are the plain
-// operators), where the CPU tests run it against the twin.
+// (g++ -x c++), where the CPU tests run it against the twin.
 
-#include <math.h>
-#include <stdint.h>
 #include <string.h>
 
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define HD __device__ __forceinline__
-#define LDG(p) __ldg(p)
-#else
-#define HD inline
-#define LDG(p) (*(p))
-static inline float __fmul_rn(float a, float b) { return a * b; }
-static inline float __fadd_rn(float a, float b) { return a + b; }
-static inline float __fsub_rn(float a, float b) { return a - b; }
-static inline float __fdiv_rn(float a, float b) { return a / b; }
-#endif
+#include "pluecker.cuh"
 
 namespace {
 
+using pluecker::BIG;
+using pluecker::Ray;
+using pluecker::load_ray;
+
 constexpr int K = 128;                  // triangles per leaf
-constexpr float BIG = 3.0e37f;          // ops/intersect.py _BIG (a miss)
-constexpr float DEN_TINY = 1e-30f;      // ops/intersect.py _DEN_TINY
-constexpr float NEG_EPS = (float)(-1e-4);      // -config.EPSILON
-constexpr float ONE_EPS = (float)(1.0 + 1e-4);  // 1 + config.EPSILON
-constexpr float BOX_PAD = 1e-3f;        // slot widening, 5x 2*EPSILON
 
 enum : int { ERR_STACK = 1, ERR_LINK = 2 };
 
@@ -79,62 +63,6 @@ struct Tree {
   int n_nodes;
   int n_leaves;
 };
-
-struct Ray {
-  float o[3], d[3], m[3], rcp[3];
-  float tmin, tmax;
-};
-
-HD float slab_near(float a) { return isnan(a) ? -INFINITY : a; }
-HD float slab_far(float a) { return isnan(a) ? INFINITY : a; }
-
-// One Pluecker numerator: rows 0-5 of column `col` against [d, m].
-HD float sum6(const float* lw, int col, const Ray& r) {
-  const int s = 4 * K;
-  float acc = __fmul_rn(LDG(lw + col), r.d[0]);
-  acc = __fadd_rn(acc, __fmul_rn(LDG(lw + s + col), r.d[1]));
-  acc = __fadd_rn(acc, __fmul_rn(LDG(lw + 2 * s + col), r.d[2]));
-  acc = __fadd_rn(acc, __fmul_rn(LDG(lw + 3 * s + col), r.m[0]));
-  acc = __fadd_rn(acc, __fmul_rn(LDG(lw + 4 * s + col), r.m[1]));
-  return __fadd_rn(acc, __fmul_rn(LDG(lw + 5 * s + col), r.m[2]));
-}
-
-// The t numerator: rows 6-9 of column 3K+k against [o, 1].
-HD float sum4(const float* lw, int k, const Ray& r) {
-  const int s = 4 * K, col = 3 * K + k;
-  float acc = __fmul_rn(LDG(lw + 6 * s + col), r.o[0]);
-  acc = __fadd_rn(acc, __fmul_rn(LDG(lw + 7 * s + col), r.o[1]));
-  acc = __fadd_rn(acc, __fmul_rn(LDG(lw + 8 * s + col), r.o[2]));
-  return __fadd_rn(acc, LDG(lw + 9 * s + col));
-}
-
-// Nearest accepted triangle of one leaf with t in [tmin, curmax]
-// (acceptance rule of ops/pallas_bvh.py:1241-1244); the first lane wins
-// ties. Returns BIG when none is accepted.
-HD float shade_leaf(const float* lw, const Ray& r, float curmax, int* lane) {
-  float lt = BIG;
-  int lj = 0;
-  for (int k = 0; k < K; ++k) {
-    const float b = sum6(lw, k, r);
-    const float g = sum6(lw, K + k, r);
-    const float den = sum6(lw, 2 * K + k, r);
-    const float tn = sum4(lw, k, r);
-    const bool tiny = fabsf(den) < DEN_TINY;
-    const float inv = __fdiv_rn(1.0f, tiny ? 1.0f : den);
-    const float beta = __fmul_rn(b, inv);
-    const float gamma = __fmul_rn(g, inv);
-    const float tt = __fmul_rn(tn, inv);
-    const bool ok = beta >= NEG_EPS && gamma >= NEG_EPS &&
-                    __fadd_rn(beta, gamma) <= ONE_EPS && tt >= r.tmin &&
-                    tt <= curmax && !tiny;
-    if (ok && tt < lt) {
-      lt = tt;
-      lj = k;
-    }
-  }
-  *lane = lj;
-  return lt;
-}
 
 // Visit counts of one walk (STATS).
 struct Visits {
@@ -165,26 +93,12 @@ HD float walk(const Tree& tree, const Ray& r, int* stack, long stride,
       const float curmax = fminf(r.tmax, best);
       const float* cb = tree.cbox + (long)node * 8 * W;
       for (int i = 0; i < W; ++i) {
-        float ent = r.tmin, ext = curmax;
+        float lo[3], hi[3], ext;
         for (int a = 0; a < 3; ++a) {
-          // The acceptance rule admits points up to 2*EPSILON of the
-          // triangle's extent outside it, so each slot is widened by
-          // BOX_PAD of its own extent; without that the walk misses hits
-          // that lie just past a shared edge, which the brute force finds.
-          // An empty slot has zero extent and stays a degenerate point.
-          // (the intrinsics keep nvcc from fusing these into a multiply-
-          // add, so the visits equal the plain walk's in ops/wide_bvh.py)
-          const float lo = LDG(cb + a * W + i);
-          const float hi = LDG(cb + 3 * W + a * W + i);
-          const float pad = __fmul_rn(__fsub_rn(hi, lo), BOX_PAD);
-          const float ta =
-              __fmul_rn(__fsub_rn(__fsub_rn(lo, pad), r.o[a]), r.rcp[a]);
-          const float tb =
-              __fmul_rn(__fsub_rn(__fadd_rn(hi, pad), r.o[a]), r.rcp[a]);
-          // 0*inf is NaN: that axis must not constrain the interval
-          ent = fmaxf(ent, fminf(slab_near(ta), slab_near(tb)));
-          ext = fminf(ext, fmaxf(slab_far(ta), slab_far(tb)));
+          lo[a] = LDG(cb + a * W + i);
+          hi[a] = LDG(cb + 3 * W + a * W + i);
         }
+        const float ent = pluecker::padded_entry(lo, hi, r, curmax, &ext);
         if (ent <= ext) {
           if (sp >= stack_depth) {
             *err |= ERR_STACK;
@@ -202,7 +116,8 @@ HD float walk(const Tree& tree, const Ray& r, int* stack, long stride,
       if (STATS) ++vis->leaf;
       int lane;
       const float* lw = tree.leafW + (long)leaf * 16 * 4 * K;
-      const float lt = shade_leaf(lw, r, fminf(r.tmax, best), &lane);
+      const float lt =
+          pluecker::shade_leaf<K>(lw, r, fminf(r.tmax, best), &lane);
       if (lt < best) {
         best = lt;
         *best_id = leaf * K + lane;
@@ -211,22 +126,6 @@ HD float walk(const Tree& tree, const Ray& r, int* stack, long stride,
     }
   }
   return best;
-}
-
-HD Ray load_ray(const float* o, const float* d, const float* tmin,
-                const float* tmax, long i) {
-  Ray r;
-  for (int a = 0; a < 3; ++a) {
-    r.o[a] = LDG(o + 3 * i + a);
-    r.d[a] = LDG(d + 3 * i + a);
-    r.rcp[a] = __fdiv_rn(1.0f, r.d[a]);
-  }
-  r.m[0] = __fsub_rn(__fmul_rn(r.o[1], r.d[2]), __fmul_rn(r.o[2], r.d[1]));
-  r.m[1] = __fsub_rn(__fmul_rn(r.o[2], r.d[0]), __fmul_rn(r.o[0], r.d[2]));
-  r.m[2] = __fsub_rn(__fmul_rn(r.o[0], r.d[1]), __fmul_rn(r.o[1], r.d[0]));
-  r.tmin = LDG(tmin + i);
-  r.tmax = LDG(tmax + i);
-  return r;
 }
 
 // The winner's 32 attribute floats, zeros on a miss.

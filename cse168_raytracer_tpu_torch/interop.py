@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cse168_raytracer_tpu_torch.config import resolve_device
 from cse168_raytracer_tpu_torch.models.geometry import (PlanePool, SpherePool,
                                                         TrianglePack)
 from cse168_raytracer_tpu_torch.models.lights import light_table_from_arrays
@@ -32,9 +33,10 @@ def _fields(obj, names, device):
     return {k: _t(getattr(obj, k), device) for k in names}
 
 
-def scene_from_numpy(scene, static, device="cpu"):
+def scene_from_numpy(scene, static, device=None):
     """(Scene, SceneStatic) of the port from the JAX package's scene and
     static facts with numpy leaves."""
+    device = resolve_device(device)
     for name in ("images", "cellulars"):
         if len(getattr(scene, name, ())):
             raise NotImplementedError(f"scene.{name}: ROADMAP item A10")
@@ -81,7 +83,8 @@ def scene_from_numpy(scene, static, device="cpu"):
     return port_scene, port_static
 
 
-def camera_from_numpy(cam, device="cpu") -> Camera:
+def camera_from_numpy(cam, device=None) -> Camera:
     """The port's Camera from the JAX package's camera (numpy leaves)."""
+    device = resolve_device(device)
     return camera_from_arrays(cam.eye, cam.view_dir, cam.up, cam.fov,
                               cam.bg_color, device)

@@ -21,6 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from cse168_raytracer_tpu_torch.config import resolve_device
+
 
 @dataclasses.dataclass
 class TrianglePack:
@@ -78,10 +80,11 @@ def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
 
 def pack_triangles(meshes: list[tuple[dict, int]], block: int = 128,
                    reorder: Optional[np.ndarray] = None,
-                   device="cpu") -> TrianglePack:
+                   device=None) -> TrianglePack:
     """TrianglePack from [(obj_dict, material_id), ...], concatenated,
     optionally reordered, and padded to a multiple of `block` with
     degenerate triangles (n_geo = 0, never hit)."""
+    device = resolve_device(device)
     v0s, e1s, e2s, n0s, n1s, n2s, t0s, t1s, t2s, uvs, mats = \
         [], [], [], [], [], [], [], [], [], [], []
     for obj, mat_id in meshes:
@@ -168,12 +171,13 @@ def plucker_operands(v0, e1, e2, n_geo=None):
 
 
 def build_pack_from_arrays(v0, e1, e2, n0, n1, n2, t0, t1, t2,
-                           has_uv, mat, valid, device="cpu",
+                           has_uv, mat, valid, device=None,
                            with_plucker: bool = True) -> TrianglePack:
     """Assemble a TrianglePack from host numpy arrays. n_geo and the
     Pluecker operands are computed in the inputs' precision and stored
     as float32, as in the JAX package. with_plucker=False leaves w6/w4
     out: the wide-BVH tables carry them instead."""
+    device = resolve_device(device)
     n_geo = np.cross(e1, e2)
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     w6 = w4 = None
@@ -200,7 +204,8 @@ def pack_host_arrays(pack: TrianglePack) -> dict:
             if isinstance(getattr(pack, f.name), torch.Tensor)}
 
 
-def make_sphere_pool(centers, radii, material_ids, device="cpu") -> SpherePool:
+def make_sphere_pool(centers, radii, material_ids, device=None) -> SpherePool:
+    device = resolve_device(device)
     centers = np.atleast_2d(np.asarray(centers, np.float32))
     radii = np.atleast_1d(np.asarray(radii, np.float32))
     mids = np.atleast_1d(np.asarray(material_ids, np.int32))
@@ -211,7 +216,8 @@ def make_sphere_pool(centers, radii, material_ids, device="cpu") -> SpherePool:
                                        device=device))
 
 
-def make_plane_pool(origins, normals, material_ids, device="cpu") -> PlanePool:
+def make_plane_pool(origins, normals, material_ids, device=None) -> PlanePool:
+    device = resolve_device(device)
     origins = np.atleast_2d(np.asarray(origins, np.float32))
     normals = np.atleast_2d(np.asarray(normals, np.float32))
     mids = np.atleast_1d(np.asarray(material_ids, np.int32))
@@ -222,19 +228,22 @@ def make_plane_pool(origins, normals, material_ids, device="cpu") -> PlanePool:
                                       device=device))
 
 
-def empty_sphere_pool(device="cpu") -> SpherePool:
+def empty_sphere_pool(device=None) -> SpherePool:
+    device = resolve_device(device)
     pool = make_sphere_pool([(0.0, 0.0, 0.0)], [1.0], [0], device)
     pool.valid.zero_()
     return pool
 
 
-def empty_plane_pool(device="cpu") -> PlanePool:
+def empty_plane_pool(device=None) -> PlanePool:
+    device = resolve_device(device)
     pool = make_plane_pool([(0.0, 0.0, 0.0)], [(0.0, 1.0, 0.0)], [0], device)
     pool.valid.zero_()
     return pool
 
 
-def empty_triangle_pack(block: int = 128, device="cpu") -> TrianglePack:
+def empty_triangle_pack(block: int = 128, device=None) -> TrianglePack:
+    device = resolve_device(device)
     z3 = np.zeros((block, 3), np.float32)
     z2 = np.zeros((block, 2), np.float32)
     return build_pack_from_arrays(

@@ -24,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from cse168_raytracer_tpu_torch.config import PI
+from cse168_raytracer_tpu_torch.config import PI, resolve_device
 from cse168_raytracer_tpu_torch.core.sampling import uniform, uniform_disc
 from cse168_raytracer_tpu_torch.core.vecmath import dot, onb
 
@@ -49,9 +49,10 @@ class LightTable:
         return self.kind.shape[0]
 
 
-def make_light_table(lights: list[dict], device="cpu") -> LightTable:
+def make_light_table(lights: list[dict], device=None) -> LightTable:
     """lights: dicts with kind/position/color/wattage and optional
     normal/radius/dims."""
+    device = resolve_device(device)
     n = max(len(lights), 1)
     kind = np.zeros(n, np.int32)
     pos = np.zeros((n, 3), np.float32)
@@ -74,7 +75,8 @@ def make_light_table(lights: list[dict], device="cpu") -> LightTable:
 
 
 def light_table_from_arrays(kind, pos, nrm, col, wat, rad, dim,
-                            device="cpu") -> LightTable:
+                            device=None) -> LightTable:
+    device = resolve_device(device)
     t = lambda x, dt: torch.as_tensor(np.array(x, dt), device=device)
     kind = np.asarray(kind, np.int32)
     return LightTable(kind=t(kind, np.int32), position=t(pos, np.float32),

@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from cse168_raytracer_tpu_torch.config import resolve_device
 from cse168_raytracer_tpu_torch.core.fastgather import take_rows
 
 SHININESS_INF = 1.0e30
@@ -119,7 +120,8 @@ class MaterialBuilder:
                            np.int32(image_id)))
         return len(self._rows) - 1
 
-    def build(self, device="cpu") -> MaterialTable:
+    def build(self, device=None) -> MaterialTable:
+        device = resolve_device(device)
         if not self._rows:
             self.phong()
         col = lambda i: torch.as_tensor(np.stack([r[i] for r in self._rows]),

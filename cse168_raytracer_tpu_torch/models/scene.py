@@ -14,6 +14,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from cse168_raytracer_tpu_torch.config import resolve_device
 from cse168_raytracer_tpu_torch.models.geometry import (PlanePool, SpherePool,
                                                         TrianglePack,
                                                         empty_plane_pool,
@@ -73,7 +74,8 @@ def make_scene(tris: Optional[TrianglePack] = None,
                materials: Optional[MaterialTable] = None,
                lights: Optional[Sequence[dict]] = None,
                env: Optional[Environment] = None,
-               device="cpu") -> tuple[Scene, SceneStatic]:
+               device=None) -> tuple[Scene, SceneStatic]:
+    device = resolve_device(device)
     if tris is None:
         tris = empty_triangle_pack(device=device)
     if spheres is None:

@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from cse168_raytracer_tpu_torch.config import resolve_device
 from cse168_raytracer_tpu_torch.core.fastgather import take_rows
 from cse168_raytracer_tpu_torch.models.materials import (MaterialTable,
                                                          TEX_CHECKER,
@@ -49,7 +50,8 @@ class Environment:
 def make_environment(cloud_params=None, rotation=(0.0, 0.0),
                      bg_color=(0.0, 0.0, 0.0),
                      quirk_cloud_env_black: bool = True,
-                     device="cpu") -> Environment:
+                     device=None) -> Environment:
+    device = resolve_device(device)
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     return Environment(
         cloud_params=None if cloud_params is None else t(cloud_params),

@@ -4,12 +4,14 @@ Each kernel source under cse168_raytracer_tpu_torch/csrc/ is compiled by
 `nvcc` for Hopper (sm_90a) into a shared library with a plain C
 interface, loaded with ctypes. The build happens at first use, into
 cse168_raytracer_tpu_torch/_build/<hash>/, keyed on a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. Nothing is built when a module is imported.
+source, the shared headers (csrc/*.cuh) and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import fcntl
 import hashlib
@@ -25,6 +27,9 @@ BUILD = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+# every kernel source of the port
+SOURCES = ("traverse_wide.cu", "traverse_binary.cu", "tri_blocks.cu")
 
 # what the builds of this process did: {source: {"seconds", "log", "path"}}
 BUILD_INFO: dict = {}
@@ -42,9 +47,12 @@ def build_library(source: str) -> str:
     """Compile csrc/<source> (if not already built) and return the path
     of its shared library."""
     src_path = os.path.join(CSRC, source)
-    with open(src_path, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
+    key = digest.hexdigest()[:16]
     out_dir = os.path.join(BUILD, key)
     lib = os.path.join(out_dir, "lib" + os.path.splitext(source)[0] + ".so")
     os.makedirs(out_dir, exist_ok=True)
@@ -67,3 +75,11 @@ def build_library(source: str) -> str:
 
 def load_library(source: str) -> ctypes.CDLL:
     return ctypes.CDLL(build_library(source))
+
+
+def build_all(sources=SOURCES) -> dict:
+    """Build every kernel source at once, one nvcc process each, all
+    started together. Returns {source: library path}; raises the first
+    failure."""
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        return dict(zip(sources, pool.map(build_library, sources)))

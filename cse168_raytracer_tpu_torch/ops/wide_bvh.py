@@ -45,13 +45,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from cse168_raytracer_tpu_torch.config import EPSILON
 from cse168_raytracer_tpu_torch.core.vecmath import cross
 from cse168_raytracer_tpu_torch.models.geometry import (TrianglePack,
                                                         pack_host_arrays,
                                                         plucker_operands)
 from cse168_raytracer_tpu_torch.ops import cuda_build
-from cse168_raytracer_tpu_torch.ops.intersect import _BIG, _DEN_TINY
+from cse168_raytracer_tpu_torch.ops.intersect import _BIG
+from cse168_raytracer_tpu_torch.ops.pluecker import triangle_t
 
 K = 128          # triangles per leaf
 _FAR = 1.0e30    # empty-slot box (a degenerate point the slab test rejects)
@@ -292,25 +292,9 @@ def _lane_t(lw, r6, o3, tmin, tmax):
     the ray with t in [tmin, tmax], _BIG elsewhere. r6 (direction and
     moment) and o3 (origin) hold the ray's components, and tmin and tmax
     its bounds, each shaped to broadcast against lw[..., 0, :K]."""
-    def sum6(c):
-        acc = lw[..., 0, c:c + K] * r6[0]
-        for r in range(1, 6):
-            acc = acc + lw[..., r, c:c + K] * r6[r]
-        return acc
-
-    b, g, den = sum6(0), sum6(K), sum6(2 * K)
-    tc = slice(3 * K, 4 * K)
-    tn = lw[..., 6, tc] * o3[0]
-    tn = tn + lw[..., 7, tc] * o3[1]
-    tn = tn + lw[..., 8, tc] * o3[2]
-    tn = tn + lw[..., 9, tc]
-    tiny = den.abs() < _DEN_TINY
-    inv = 1.0 / torch.where(tiny, 1.0, den)
-    beta, gamma, tt = b * inv, g * inv, tn * inv
-    ok = ((beta >= -EPSILON) & (gamma >= -EPSILON)
-          & (beta + gamma <= 1.0 + EPSILON) & (tt >= tmin) & (tt <= tmax)
-          & ~tiny)
-    return torch.where(ok, tt, _BIG)
+    rows = lambda c, r0, r1: [lw[..., r, c:c + K] for r in range(r0, r1)]
+    return triangle_t(rows(0, 0, 6), rows(K, 0, 6), rows(2 * K, 0, 6),
+                      rows(3 * K, 6, 10), r6, o3, tmin, tmax)
 
 
 @torch.no_grad()
@@ -371,6 +355,25 @@ def _leaf_test(bvh: WideBVH, leaves, o, d, m, tmin, curmax):
     return lt, lane
 
 
+def _padded_entry(lo, hi, o, rcp, tmin, curmax):
+    """pluecker.cuh's padded_entry for many rays at once: boxes lo, hi
+    (M, 3, ...) widened by BOX_PAD of their extent, rays o, rcp (M, 3,
+    ...) broadcast against them, clipped to [tmin, curmax] (M, ...); NaN
+    from 0*inf leaves that axis unconstrained. Returns (entry t, exit t);
+    a box passes when entry <= exit."""
+    pad = (hi - lo) * BOX_PAD
+    ta = ((lo - pad) - o) * rcp
+    tb = ((hi + pad) - o) * rcp
+    nan_to = lambda x, v: torch.where(torch.isnan(x), v, x)
+    near = torch.minimum(nan_to(ta, -torch.inf), nan_to(tb, -torch.inf))
+    far = torch.maximum(nan_to(ta, torch.inf), nan_to(tb, torch.inf))
+    ent, ext = tmin, curmax
+    for a in range(3):
+        ent = torch.maximum(ent, near[:, a])
+        ext = torch.minimum(ext, far[:, a])
+    return ent, ext
+
+
 @torch.no_grad()
 def walk_plain(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool = False):
     """The kernel's walk in plain PyTorch, one stack per ray, every ray
@@ -394,7 +397,6 @@ def walk_plain(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool = False):
     n_leaf = torch.zeros((n,), dtype=torch.int32, device=dev)
     stack = torch.zeros((n, bvh.stack_depth), dtype=torch.int64, device=dev)
     sp = (tmax >= tmin).to(torch.int64)
-    nan_to = lambda x, v: torch.where(torch.isnan(x), v, x)
     while True:
         act = torch.nonzero(sp > 0)[:, 0]
         if act.numel() == 0:
@@ -406,18 +408,10 @@ def walk_plain(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool = False):
         ia, nodes = act[inner], node[inner]
         if ia.numel():
             n_int[ia] += 1
-            lo, hi = lo_hi[nodes, 0:3], lo_hi[nodes, 3:6]  # (M, 3, W)
-            pad = (hi - lo) * BOX_PAD
-            oo, rr = o[ia][:, :, None], rcp[ia][:, :, None]
-            ta = ((lo - pad) - oo) * rr
-            tb = ((hi + pad) - oo) * rr
-            near = torch.minimum(nan_to(ta, -torch.inf), nan_to(tb, -torch.inf))
-            far = torch.maximum(nan_to(ta, torch.inf), nan_to(tb, torch.inf))
-            ent = tmin[ia, None]
-            ext = torch.minimum(tmax[ia], best[ia])[:, None]
-            for a in range(3):
-                ent = torch.maximum(ent, near[:, a])
-                ext = torch.minimum(ext, far[:, a])
+            ent, ext = _padded_entry(
+                lo_hi[nodes, 0:3], lo_hi[nodes, 3:6],     # (M, 3, W)
+                o[ia][:, :, None], rcp[ia][:, :, None], tmin[ia, None],
+                torch.minimum(tmax[ia], best[ia])[:, None])
             push = ent <= ext                             # (M, W)
             k = push.to(torch.int64)
             top = sp[ia] + k.sum(1)
@@ -493,28 +487,39 @@ def _kernel_lib():
     return _lib
 
 
-def _check_inputs(bvh: WideBVH, o, d, tmin, tmax):
+def check_launch(o, d, tmin, tmax, tables):
+    """What every kernel wrapper checks before a launch: rays o, d (N, 3)
+    and tmin, tmax (N,), and the named tables [(name, tensor, dtype)],
+    contiguous, of their dtype (float32 for the rays) and on one device;
+    N below 2**31."""
     dev = o.device
-    for name, x, dt in (("o", o, torch.float32), ("d", d, torch.float32),
-                        ("tmin", tmin, torch.float32),
-                        ("tmax", tmax, torch.float32),
-                        ("cbox", bvh.cbox, torch.float32),
-                        ("links", bvh.links, torch.int32),
-                        ("leafW", bvh.leafW, torch.float32),
-                        ("attrA", bvh.attrA, torch.float32)):
+    f32 = torch.float32
+    for name, x, dt in [("o", o, f32), ("d", d, f32), ("tmin", tmin, f32),
+                        ("tmax", tmax, f32)] + list(tables):
         if x.device != dev or x.dtype != dt or not x.is_contiguous():
             raise ValueError(f"{name}: need a contiguous {dt} tensor on "
                              f"{dev}, got {x.dtype} on {x.device}")
-    n, w = o.shape[0], bvh.width
+    n = o.shape[0]
     if o.shape != (n, 3) or d.shape != (n, 3) or tmin.shape != (n,) \
             or tmax.shape != (n,):
         raise ValueError("rays: need o, d (N, 3) and tmin, tmax (N,)")
+    if n >= 2 ** 31:
+        raise ValueError("too many rays for one launch")
+
+
+def _check_inputs(bvh: WideBVH, o, d, tmin, tmax):
+    f32 = torch.float32
+    check_launch(o, d, tmin, tmax, (("cbox", bvh.cbox, f32),
+                                    ("links", bvh.links, torch.int32),
+                                    ("leafW", bvh.leafW, f32),
+                                    ("attrA", bvh.attrA, f32)))
+    n, w = o.shape[0], bvh.width
     if w not in (4, 8) or bvh.cbox.shape != (bvh.n_nodes, 8 * w) \
             or bvh.links.shape != (bvh.n_nodes * w,) \
             or bvh.leafW.shape != (bvh.n_leaves, 16, 4 * K) \
             or bvh.attrA.shape != (bvh.n_leaves, 16, 2 * K):
         raise ValueError("WideBVH arrays do not match its width and counts")
-    if n >= 2 ** 31 or bvh.stack_depth * n >= 2 ** 62:
+    if bvh.stack_depth * n >= 2 ** 62:
         raise ValueError("too many rays for one launch")
 
 

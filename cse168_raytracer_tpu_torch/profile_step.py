@@ -1,10 +1,12 @@
 """Where the time of one main-path step goes, on one NVIDIA GPU.
 
     python -m cse168_raytracer_tpu_torch.profile_step [--res 512] [--steps 3]
-        [--render]
+        [--render] [--accel KIND]
 
 Builds sponza_proxy with its light inside the atrium (as chip_smoke.py's
-lit run), attaches the wide BVH and times fwd+bwd steps of
+lit run), attaches the accelerator KIND (ops/accel.py; default "auto",
+the wide BVH; the counterpart of the second argument of the JAX
+package's tools/perf/profile_phases.py) and times fwd+bwd steps of
 sum(render_hdr) with respect to kd by CUDA events; with --render, the
 forward-only render with the traversal counters on, as `cli render
 --stats` runs it. Then it traces the same steps with torch.profiler and
@@ -24,7 +26,7 @@ import torch
 from cse168_raytracer_tpu_torch.config import RenderConfig
 from cse168_raytracer_tpu_torch.models.lights import (LIGHT_POINT,
                                                       make_light_table)
-from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+from cse168_raytracer_tpu_torch.ops.accel import KINDS, attach_accel
 from cse168_raytracer_tpu_torch.render.integrator import render_hdr
 from cse168_raytracer_tpu_torch.scenes import build
 
@@ -46,6 +48,8 @@ def main(argv=None):
     ap.add_argument("--render", action="store_true",
                     help="profile the forward-only render with counters "
                          "(cli render --stats) instead of the fwd+bwd step")
+    ap.add_argument("--accel", default="auto", choices=KINDS,
+                    help="accelerator kind (ops/accel.py)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
@@ -55,7 +59,7 @@ def main(argv=None):
                          text=True, timeout=60).stdout.strip())
     cfg = RenderConfig(width=args.res, height=args.res, trace_depth=4)
     scene, static, cam, cfg = build("sponza_proxy", cfg, device=dev)
-    scene = attach_accel(scene).replace(lights=make_light_table(
+    scene = attach_accel(scene, args.accel).replace(lights=make_light_table(
         [dict(kind=LIGHT_POINT, position=(0.0, 8.0, 0.0), color=(1, 1, 1),
               wattage=200.0)], dev))
     if args.render:
@@ -76,7 +80,7 @@ def main(argv=None):
         work()
     end.record()
     torch.cuda.synchronize()
-    print(f"{'render' if args.render else 'step'} "
+    print(f"{'render' if args.render else 'step'} (accel {args.accel}) "
           f"{start.elapsed_time(end) / args.steps:.3f} ms "
           f"(CUDA events, mean of {args.steps})")
 

@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from cse168_raytracer_tpu_torch.config import PI
+from cse168_raytracer_tpu_torch.config import PI, resolve_device
 from cse168_raytracer_tpu_torch.core.sampling import uniform, uniform_disc
 from cse168_raytracer_tpu_torch.core.vecmath import cross, safe_normalize
 
@@ -33,14 +33,16 @@ class Camera:
 
 
 def camera_from_arrays(eye, view_dir, up, fov, bg_color,
-                       device="cpu") -> Camera:
+                       device=None) -> Camera:
+    device = resolve_device(device)
     t = lambda x: torch.as_tensor(np.array(x, np.float32), device=device)
     return Camera(eye=t(eye), view_dir=t(view_dir), up=t(up), fov=t(fov),
                   bg_color=t(bg_color))
 
 
 def make_camera(eye, look_at, up=(0.0, 1.0, 0.0), fov=45.0,
-                bg_color=(0.0, 0.0, 0.0), device="cpu") -> Camera:
+                bg_color=(0.0, 0.0, 0.0), device=None) -> Camera:
+    device = resolve_device(device)
     eye = np.asarray(eye, np.float32)
     vd = safe_normalize(torch.as_tensor(np.asarray(look_at, np.float32)
                                         - eye))

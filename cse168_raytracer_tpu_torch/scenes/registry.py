@@ -18,7 +18,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from cse168_raytracer_tpu_torch.config import RenderConfig
+from cse168_raytracer_tpu_torch.config import RenderConfig, resolve_device
 from cse168_raytracer_tpu_torch.models.geometry import (make_plane_pool,
                                                         make_sphere_pool,
                                                         pack_triangles)
@@ -32,17 +32,6 @@ from cse168_raytracer_tpu_torch.render.camera import make_camera
 # CloudTexture parameter rows (scale, cloudSize, density, sharpness,
 # ambient, shadowThreshold, shadowMagnitude, shadowSharpness)
 CLOUD_PARAMS_A3 = (3.0, 0.1, 0.2, 50.0, 0.4, 0.35, 0.5, 0.3)  # main.cpp:33-41
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device` as a torch.device; None means the card. Raises when the
-    card is asked for and there is none."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port runs on the card "
-                           "unless asked for the CPU (device='cpu', or "
-                           "--device cpu on the command line)")
-    return device
 
 
 def single_triangle(v1, v2, v3, n=(0, 1, 0)):

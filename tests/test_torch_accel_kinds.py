@@ -1,0 +1,581 @@
+"""The port's accelerator kinds against the JAX package's.
+
+For every kind of attach_accel (block, bvh, packet, pallas_sah,
+pallas_forest, pallas; the wide tiers are in test_torch_host.py and
+test_torch_traverse.py) on a 3,000-triangle clustered mesh and a cut
+sponza_proxy, both padded to a multiple of 256 with inputs made from a
+seed with numpy:
+1. the host arrays equal the JAX package's byte for byte;
+2. closest and any hit on 256 rays equal the JAX function's (hit masks
+   equal, t within 1e-5 relative, ids equal but at ties); kernels K5 and
+   K6 run there as interpreted Pallas;
+3. kernel K5's counts (here its plain version, walk_binary_plain) against
+   the Pallas kernel's with_stats, each ray alone in its 256-lane tile;
+4. option errors, K6's padding error and traversal_stats;
+5. a 32x32 Whitted render and its kd gradient with pallas_sah, pallas,
+   block and bvh against the JAX package with the same kind.
+The CUDA kernels' own code, built with g++ for the host, is held against
+the plain versions exactly. The kernels run on the card in
+tests/test_torch_cuda.py and chip_smoke.py."""
+
+import ctypes
+import functools
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import test_torch_golden  # noqa: E402,F401  (shares the cores between workers)
+from test_torch_host import (PACK_FIELDS, assert_bytes_equal,  # noqa: E402
+                             assert_pack_equal, ensure_native)
+from test_torch_stats import pallas_counts  # noqa: E402
+from test_torch_traverse import BIG, clustered_mesh, rays  # noqa: E402
+
+from cse168_raytracer_tpu.config import RenderConfig as JCfg  # noqa: E402
+from cse168_raytracer_tpu.models import geometry as jgeo  # noqa: E402
+from cse168_raytracer_tpu.ops import accel as jacc  # noqa: E402
+from cse168_raytracer_tpu.ops import bvh as jbvh  # noqa: E402
+from cse168_raytracer_tpu.ops import packet as jpkt  # noqa: E402
+from cse168_raytracer_tpu.ops import pallas_bvh as jpb  # noqa: E402
+from cse168_raytracer_tpu.ops import pallas_intersect as jpi  # noqa: E402
+from cse168_raytracer_tpu.ops import stats as jstats  # noqa: E402
+from cse168_raytracer_tpu.render.integrator import \
+    render_hdr as j_render  # noqa: E402
+from cse168_raytracer_tpu.scenes import build as j_build  # noqa: E402
+from cse168_raytracer_tpu.scenes.registry import \
+    _make_sponza_proxy  # noqa: E402
+from cse168_raytracer_tpu_torch import interop  # noqa: E402
+from cse168_raytracer_tpu_torch.config import RenderConfig  # noqa: E402
+from cse168_raytracer_tpu_torch.models import geometry as tgeo  # noqa: E402
+from cse168_raytracer_tpu_torch.models.scene import make_scene  # noqa: E402
+from cse168_raytracer_tpu_torch.ops import accel as tacc  # noqa: E402
+from cse168_raytracer_tpu_torch.ops import binary_bvh as tbb  # noqa: E402
+from cse168_raytracer_tpu_torch.ops import cuda_build  # noqa: E402
+from cse168_raytracer_tpu_torch.ops import forest as tfor  # noqa: E402
+from cse168_raytracer_tpu_torch.ops import stats as tstats  # noqa: E402
+from cse168_raytracer_tpu_torch.ops import tri_blocks as ttb  # noqa: E402
+from cse168_raytracer_tpu_torch.render.integrator import \
+    render_hdr  # noqa: E402
+
+MESHES = {"clustered": lambda: clustered_mesh(3000, 16),
+          "sponza_cut": lambda: _make_sponza_proxy(target_tris=4000)}
+# chunk sizes that cut each mesh into 3 or more forest chunks
+CHUNK_TRIS = {"clustered": 1000, "sponza_cut": 15000}
+RTOL = 1e-5
+
+
+@functools.lru_cache(maxsize=None)
+def packs(name):
+    """(JAX pack, port pack) of the mesh, padded to a multiple of 256."""
+    meshes = [(MESHES[name](), 0)]
+    return (jgeo.pack_triangles(meshes, block=256),
+            tgeo.pack_triangles(meshes, block=256, device="cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def morton_packs(name):
+    jpack, tpack = packs(name)
+    f = lambda p, k: np.asarray(getattr(p, k))
+    jperm = jacc.morton_order(*(f(jpack, k) for k in ("v0", "e1", "e2",
+                                                      "valid")))
+    tperm = tacc.morton_order(*(getattr(tpack, k).numpy()
+                                for k in ("v0", "e1", "e2", "valid")))
+    return (jperm, tperm, jacc.reorder_pack(jpack, jperm),
+            tacc.reorder_pack(tpack, tperm))
+
+
+def kind_pair(name, kind):
+    """The JAX package's and the port's accelerator of `kind` over the
+    mesh: (JAX accel, port accel, port pack)."""
+    ensure_native()
+    jpack, tpack = packs(name)
+    _, _, jm, tm = morton_packs(name)
+    if kind == "block":
+        return jacc.build_accel(jm), tacc.build_accel(tm), tm
+    if kind == "bvh":
+        return jbvh.build_bvh(jm), tacc.bvh.build_bvh(tm), tm
+    if kind == "packet":
+        return (jpkt.build_packet_accel(jm),
+                tacc.packet.build_packet_accel(tm), tm)
+    if kind == "pallas":
+        return jpi.build_pallas_blocks(jm), ttb.build_tri_blocks(tm), tm
+    if kind == "pallas_sah":
+        return (jpb.build_pallas_bvh_sah(jpack)[1],
+                *tbb.build_binary_bvh_sah(tpack)[::-1])
+    if kind == "lbvh":
+        return jpb.build_pallas_bvh(jm), tbb.build_binary_bvh(tm), tm
+    assert kind == "pallas_forest"
+    jnew, jf = jpb.build_pallas_bvh_forest(jpack,
+                                           chunk_tris=CHUNK_TRIS[name])
+    tnew, tf = tfor.build_forest(tpack, chunk_tris=CHUNK_TRIS[name])
+    return jf, tf, tnew
+
+
+def scene_rays(name, seed, n=256):
+    """Rays into the mesh: for the clustered mesh from around (0, 0, -5)
+    (test_torch_traverse.rays), for sponza_proxy from around its camera
+    across the atrium; tmax >= 0."""
+    if name == "clustered":
+        o, d, tmin, tmax = rays(seed, n)
+        return o, d, tmin, np.abs(tmax)
+    rng = np.random.default_rng(seed)
+    o = (np.float32([8, 1.5, 1]) + rng.normal(0, 0.5, (n, 3)))
+    d = rng.uniform([-10, 0, -4], [6, 8, 4], (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = rng.uniform(2, 30, n)
+    f32 = lambda x: np.asarray(x, np.float32)
+    return f32(o), f32(d), np.zeros(n, np.float32), f32(tmax)
+
+
+# ---------------------------------------------------------------------------
+# 1. host arrays
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_morton_order_and_reorder_bytes(name):
+    jperm, tperm, jm, tm = morton_packs(name)
+    np.testing.assert_array_equal(jperm, tperm)
+    assert_pack_equal(jm, tm)
+
+
+TABLES = {
+    "block": ("block_lo", "block_hi", "group_lo", "group_hi"),
+    "bvh": ("cbox", "leaf_tri"),
+    "packet": ("cbox", "leaf_w6", "leaf_w4"),
+    "pallas_sah": ("cbox", "leafW"),
+    "lbvh": ("cbox", "leafW"),
+    "pallas": ("w6", "w4", "aabb"),
+}
+SIZES = {"bvh": ("n_internal", "n_leaves", "leaf_size", "stack_depth"),
+         "packet": ("n_internal", "n_leaves", "leaf_size", "stack_depth",
+                    "tile"),
+         "pallas_sah": ("n_nodes", "n_leaves", "stack_depth"),
+         "lbvh": ("n_nodes", "n_leaves", "stack_depth")}
+
+
+@pytest.mark.parametrize("kind", sorted(TABLES))
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_accel_tables_bytes(name, kind):
+    jacc_, tacc_, tpack = kind_pair(name, kind)
+    for f in TABLES[kind]:
+        assert_bytes_equal(np.asarray(getattr(jacc_, f)),
+                           getattr(tacc_, f).numpy(), f)
+    for f in SIZES.get(kind, ()):
+        assert getattr(jacc_, f) == getattr(tacc_, f), f
+    if kind == "pallas_sah":
+        jnew, _ = jpb.build_pallas_bvh_sah(packs(name)[0])
+        assert_pack_equal(jnew, tpack, [f for f in PACK_FIELDS
+                                        if f not in ("w6", "w4")])
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_forest_bytes(name):
+    jf, tf, tnew = kind_pair(name, "pallas_forest")
+    assert len(tf.chunks) >= 3
+    assert tuple(jf.starts) == tuple(tf.starts)
+    for jc, tc in zip(jf.chunks, tf.chunks):
+        for f in ("cbox", "links", "leafW", "attrA"):
+            assert_bytes_equal(np.asarray(getattr(jc, f)),
+                               getattr(tc, f).numpy(), f)
+        assert (jc.n_nodes, jc.n_leaves, jc.stack_depth) == \
+            (tc.n_nodes, tc.n_leaves, tc.stack_depth)
+    jnew, _ = jpb.build_pallas_bvh_forest(packs(name)[0],
+                                          chunk_tris=CHUNK_TRIS[name])
+    assert_pack_equal(jnew, tnew, [f for f in PACK_FIELDS
+                                   if f not in ("w6", "w4")])
+
+
+# ---------------------------------------------------------------------------
+# 2. hits
+# ---------------------------------------------------------------------------
+
+def jax_hits(kind, accel, r, any_hit):
+    """(t with BIG on a miss, id) of the JAX function of `kind`."""
+    a = [jnp.asarray(x) for x in r]
+    if kind == "pallas_sah":
+        h = jpb.pallas_bvh_closest_hit_triangles(accel, *a, any_hit=any_hit,
+                                                 interpret=True)
+    elif kind == "pallas_forest":
+        h = jpb.forest_closest_hit_triangles(accel, *a, any_hit=any_hit,
+                                             interpret=True)
+    elif kind == "pallas":
+        h = jpi.pallas_intersect_triangles(accel, *a, interpret=True)
+    elif kind == "bvh":
+        h = jbvh.bvh_closest_hit_triangles(accel, *a, any_hit=any_hit)
+    elif kind == "packet":
+        h = jpkt.packet_closest_hit_triangles(accel, *a, any_hit=any_hit)
+    t = np.where(np.asarray(h.hit), np.asarray(h.t), BIG)
+    return t, np.asarray(h.prim_id)
+
+
+def port_hits(kind, accel, r, any_hit):
+    o, d, tmin, tmax = (torch.as_tensor(x) for x in r)
+    if any_hit:
+        occ = tacc._triangles_occluded(accel, o, d, tmin, tmax, False)[0]
+        return occ.numpy()
+    t, ids, _ = tacc._triangles_closest(accel, o, d, tmin, tmax, False)
+    return t.numpy(), ids.numpy()
+
+
+def assert_hits_match(t, ids, jt, jids):
+    hit, jhit = t < BIG, jt < BIG
+    np.testing.assert_array_equal(hit, jhit)
+    np.testing.assert_allclose(t[hit], jt[hit], rtol=RTOL, atol=0)
+    same = ids[hit] == jids[hit]
+    assert same.mean() > 0.99, same.mean()
+    # where the ids differ, both triangles are at the same t (a tie)
+    return hit
+
+
+@pytest.mark.parametrize("kind", ["block", "bvh", "packet", "pallas_sah",
+                                  "pallas_forest", "pallas"])
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_hits_match_jax(name, kind):
+    jacc_, tacc_, tpack = kind_pair(name, kind)
+    r = scene_rays(name, 7 + len(kind))
+    t, ids = port_hits(kind, tacc_, r, any_hit=False)
+    if kind == "block":
+        a = [jnp.asarray(x) for x in r]
+        _, _, jm, _ = morton_packs(name)
+        h = jacc.accel_intersect_triangles(jacc_, jm, *a)
+        jt = np.where(np.asarray(h.hit), np.asarray(h.t), BIG)
+        jids = np.asarray(h.prim_id)
+        jocc = np.asarray(jacc.accel_any_hit_triangles(jacc_, jm, *a))
+    else:
+        jt, jids = jax_hits(kind, jacc_, r, any_hit=False)
+        jocc = (jt < BIG if kind == "pallas"
+                else jax_hits(kind, jacc_, r, any_hit=True)[0] < BIG)
+    hit = assert_hits_match(t, ids, jt, jids)
+    assert 10 < hit.sum() < len(hit)
+    np.testing.assert_array_equal(port_hits(kind, tacc_, r, True), jocc)
+
+
+# ---------------------------------------------------------------------------
+# 3. K5's counts
+# ---------------------------------------------------------------------------
+
+# Bars against the Pallas kernel's with_stats, each ray alone in its
+# 256-lane tile. The port's walk orders children as the Pallas walk does
+# for a lone ray and drops the same stale entries; it differs only by
+# BOX_PAD, which can add visits and, where it shifts an entry t past the
+# other child's, swap the order of the two. Share of walks with equal
+# counts, and the most the totals may differ from the Pallas ones, set
+# just past what was measured on these 128 rays: clustered 98.4% equal
+# in both modes, internal visits +0.2%, leaf visits equal; sponza_cut
+# closest 99.2%, +0.3% internal and +0.6% leaf, any-hit 100% equal.
+K5_BARS = {("clustered", False): (0.97, 0.01),
+           ("clustered", True): (0.97, 0.01),
+           ("sponza_cut", False): (0.98, 0.01),
+           ("sponza_cut", True): (0.99, 0.01)}
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_k5_counts_against_pallas_with_stats(name, any_hit):
+    jacc_, tacc_, _ = kind_pair(name, "pallas_sah")
+    o, d, tmin, tmax = scene_rays(name, 30, 128)
+    t, _, n_int, n_leaf = tbb.walk_binary_plain(
+        tacc_, *(torch.as_tensor(x) for x in (o, d, tmin, tmax)),
+        any_hit=any_hit)
+    t, n_int, n_leaf = t.numpy(), n_int.numpy(), n_leaf.numpy()
+    jhit, jbox, jtri = pallas_counts(jacc_, o, d, tmin, tmax, any_hit)
+    np.testing.assert_array_equal(t < BIG, jhit)
+    j_int, j_leaf = jbox // 2, jtri // jpb.K
+    same = (n_int == j_int) & (n_leaf == j_leaf)
+    exact, excess = K5_BARS[(name, any_hit)]
+    print(f"{name} any_hit={any_hit}: {same.mean():.4f} equal; internal "
+          f"{n_int.sum()} vs {j_int.sum()}, leaf {n_leaf.sum()} vs "
+          f"{j_leaf.sum()}")
+    assert same.mean() >= exact
+    for p, j in ((n_int, j_int), (n_leaf, j_leaf)):
+        assert (1 - excess) * j.sum() <= p.sum() <= (1 + excess) * j.sum()
+    # the wrappers' counters on CPU tensors are walk_plain's, scaled
+    plain = (tbb.any_hit_triangles_plain if any_hit
+             else tbb.closest_hit_triangles_plain)
+    *_, box, tri = plain(tacc_, *(torch.as_tensor(x)
+                                  for x in (o, d, tmin, tmax)),
+                         with_stats=True)
+    np.testing.assert_array_equal(box.numpy(), 2 * n_int)
+    np.testing.assert_array_equal(tri.numpy(), tbb.K * n_leaf)
+
+
+# ---------------------------------------------------------------------------
+# 4. options, padding and traversal_stats
+# ---------------------------------------------------------------------------
+
+def port_scene(name):
+    scene, _ = make_scene(tris=packs(name)[1], device="cpu")
+    return scene
+
+
+@pytest.mark.parametrize("kind", ["block", "bvh", "packet", "pallas_sah",
+                                  "pallas_sah4", "pallas_hbm",
+                                  "pallas_forest", "pallas"])
+def test_attach_accel_option_errors(kind):
+    """The same options are accepted and the same rejected, with the same
+    message."""
+    scene = port_scene("clustered")
+    for bad in ({"bogus": 1}, {"chunk_tris": 5, "tile": 3}):
+        if kind == "packet" and "tile" in bad and "chunk_tris" not in bad:
+            continue
+        with pytest.raises(TypeError) as te:
+            tacc.attach_accel(scene, kind, **bad)
+        with pytest.raises(TypeError) as je:
+            jacc.attach_accel(None, kind, **bad)
+        assert str(te.value) == str(je.value)
+    ok = {"pallas_forest": {"chunk_tris": 1000}, "bvh": {"leaf_size": 16},
+          "packet": {"leaf_size": 16, "tile": 64}}.get(kind)
+    if ok:
+        s = tacc.attach_accel(scene, kind, **ok)
+        assert s.accel is not None
+    with pytest.raises(ValueError):
+        tacc.attach_accel(scene, "bogus")
+
+
+def test_pallas_kind_needs_256_padding():
+    meshes = [(clustered_mesh(300, 3), 0)]
+    jpack = jgeo.pack_triangles(meshes)             # 384 rows
+    tpack = tgeo.pack_triangles(meshes, device="cpu")
+    assert tpack.num_tris % 256
+    with pytest.raises(AssertionError):
+        jpi.build_pallas_blocks(jpack)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        ttb.build_tri_blocks(tpack)
+    scene, _ = make_scene(tris=tpack, device="cpu")
+    with pytest.raises(ValueError, match="multiple of 256"):
+        tacc.attach_accel(scene, "pallas")
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_traversal_stats_per_kind(name):
+    """block: the JAX package's measure_traversal_stats; the binary tree
+    and the forest: their traversals' counters; bvh, packet and pallas,
+    where the JAX package fails, raise TypeError."""
+    r = scene_rays(name, 40)
+    a = [jnp.asarray(x) for x in r]
+    o, d, tmin, tmax = (torch.as_tensor(x) for x in r)
+    jb, tb, _ = kind_pair(name, "block")
+    js = jstats.measure_traversal_stats(jb, *a)
+    ts = tstats.traversal_stats(tb, o, d, tmin, tmax)
+    assert ts.rays == js.rays == 256
+    assert float(ts.box_tests_per_ray) == pytest.approx(
+        float(js.box_tests_per_ray), rel=1e-6)
+    assert float(ts.tri_tests_per_ray) == pytest.approx(
+        float(js.tri_tests_per_ray), rel=1e-6)
+    _, tsah, _ = kind_pair(name, "pallas_sah")
+    box, tri = tbb.closest_hit_triangles(tsah, o, d, tmin, tmax, True)[2:]
+    st = tstats.traversal_stats(tsah, o, d, tmin, tmax)
+    assert float(st.box_tests_per_ray) == box.double().mean().item()
+    assert float(st.tri_tests_per_ray) == tri.double().mean().item()
+    _, tf, _ = kind_pair(name, "pallas_forest")
+    sf = tstats.traversal_stats(tf, o, d, tmin, tmax)
+    assert float(sf.tri_tests_per_ray) > 0
+    for kind in ("bvh", "packet", "pallas"):
+        jx, tx, _ = kind_pair(name, kind)
+        with pytest.raises(AttributeError):
+            jstats.traversal_stats(jx, *a)
+        with pytest.raises(TypeError, match="no traversal counters"):
+            tstats.traversal_stats(tx, o, d, tmin, tmax)
+
+
+# ---------------------------------------------------------------------------
+# 5. renders
+# ---------------------------------------------------------------------------
+
+RES = 32
+DEPTH = 4
+
+
+@functools.lru_cache(maxsize=None)
+def lit_sponza_pair():
+    """sponza_proxy with its light inside the atrium (chip_smoke.py's lit
+    run), built by the JAX package and carried over to the port."""
+    from chip_smoke import LIT_LIGHT
+    from cse168_raytracer_tpu.models.lights import make_light_table
+    scene, static, cam, _ = j_build("sponza_proxy",
+                                    JCfg(width=RES, height=RES))
+    scene = scene.replace(lights=make_light_table(
+        [dict(kind=0, position=LIT_LIGHT, color=(1, 1, 1), wattage=200.0)]))
+    host = jax.tree.map(np.asarray, scene)
+    ps, pst = interop.scene_from_numpy(host, static, "cpu")
+    pcam = interop.camera_from_numpy(jax.tree.map(np.asarray, cam), "cpu")
+    return scene, static, cam, ps, pst, pcam
+
+
+@pytest.mark.parametrize("kind", ["pallas_sah", "pallas", "block", "bvh"])
+def test_render_and_kd_grad_match_jax(kind):
+    """At tests/test_torch_render.py's bar: 99.9% of pixels within rtol
+    1e-4 / atol 1e-5, then the kd gradient of the sum over those pixels
+    within rtol 1e-4."""
+    ensure_native()
+    js, jst, jcam, ps, pst, pcam = lit_sponza_pair()
+    jscene = jacc.attach_accel(js, kind)
+    cfg = JCfg(width=RES, height=RES, trace_depth=DEPTH)
+
+    def loss(kd, weight):
+        s = jscene.replace(materials=jscene.materials._replace(kd=kd))
+        hdr, _ = j_render(s, jst, jcam, cfg, jax.random.key(0))
+        return (hdr * weight[..., None]).sum(), hdr
+
+    step = jax.jit(jax.value_and_grad(loss, has_aux=True))
+    pscene = tacc.attach_accel(ps, kind)
+    pcfg = RenderConfig(width=RES, height=RES, trace_depth=DEPTH)
+
+    def port(weight):
+        kd = pscene.materials.kd.clone().requires_grad_(True)
+        s = pscene.replace(materials=pscene.materials.replace(kd=kd))
+        hdr, _ = render_hdr(s, pst, pcam, pcfg)
+        (hdr * torch.as_tensor(weight)[..., None]).sum().backward()
+        return hdr.detach().numpy(), kd.grad.numpy()
+
+    ones = np.ones((RES, RES), np.float32)
+    (_, jh), _ = step(jscene.materials.kd, ones)
+    ph, _ = port(ones)
+    jh = np.asarray(jh)
+    close = np.isclose(ph, jh, rtol=1e-4, atol=1e-5).all(-1)
+    assert close.mean() >= 0.999, (close.mean(), np.argwhere(~close)[:5])
+    assert (ph.max(-1) > 0).mean() >= 0.05
+    weight = close.astype(np.float32)
+    _, jg = step(jscene.materials.kd, weight)
+    _, pg = port(weight)
+    assert np.abs(pg).sum() > 0
+    np.testing.assert_allclose(pg, np.asarray(jg), rtol=1e-4, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' code, built for the host
+# ---------------------------------------------------------------------------
+
+def host_library(tmp_path_factory, source):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernel's code for the host")
+    lib_path = str(tmp_path_factory.mktemp("host") / "libhost.so")
+    # no fused multiply-add: the kernels round every product and sum
+    subprocess.run([gxx, "-O2", "-ffp-contract=off", "-x", "c++", "-shared",
+                    "-fPIC", "-o", lib_path,
+                    f"{cuda_build.CSRC}/{source}"], check=True)
+    return ctypes.CDLL(lib_path)
+
+
+def ptr(x):
+    return ctypes.c_void_p(None if x is None else x.data_ptr())
+
+
+@pytest.fixture(scope="module")
+def k5_host(tmp_path_factory):
+    """traverse_binary.cu's walk on the host (traverse_binary_host)."""
+    lib = host_library(tmp_path_factory, "traverse_binary.cu")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.traverse_binary_host.argtypes = [i, p, p, p, p, i, p, p, i, i, p, p,
+                                         i, p, p, p, p]
+    lib.traverse_binary_host.restype = i
+
+    def run(bvh, r, any_hit, stack_depth=None):
+        o, d, tmin, tmax = (torch.as_tensor(x).contiguous() for x in r)
+        n = o.shape[0]
+        depth = bvh.stack_depth if stack_depth is None else stack_depth
+        out = [torch.empty(n), *(torch.empty(n, dtype=torch.int32)
+                                 for _ in range(3))]
+        stack_i = torch.empty(depth * n, dtype=torch.int32)
+        stack_t = torch.empty(depth * n)
+        err = lib.traverse_binary_host(
+            int(any_hit), ptr(o), ptr(d), ptr(tmin), ptr(tmax), n,
+            ptr(bvh.cbox), ptr(bvh.leafW), bvh.n_nodes, bvh.n_leaves,
+            ptr(stack_i), ptr(stack_t), depth, *map(ptr, out))
+        return (*(x.numpy() for x in out), err)
+
+    return run
+
+
+@pytest.mark.parametrize("kind", ["pallas_sah", "lbvh"])
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_k5_walk_equals_plain(k5_host, name, kind):
+    """t, id and both visit counts of every ray, both modes, exactly."""
+    _, bvh, _ = kind_pair(name, kind)
+    r = scene_rays(name, 50, 1024)
+    for any_hit in (False, True):
+        t, ids, n_int, n_leaf, err = k5_host(bvh, r, any_hit)
+        assert err == 0
+        pt, pid, p_int, p_leaf = tbb.walk_binary_plain(
+            bvh, *(torch.as_tensor(x) for x in r), any_hit=any_hit)
+        np.testing.assert_array_equal(t, pt.numpy())
+        np.testing.assert_array_equal(n_int, p_int.numpy())
+        np.testing.assert_array_equal(n_leaf, p_leaf.numpy())
+        if not any_hit:
+            np.testing.assert_array_equal(ids, pid.numpy())
+        assert (t < BIG).sum() > 10 and (n_leaf > 0).any()
+
+
+def test_k5_walk_reports_stack_overflow(k5_host):
+    _, bvh, _ = kind_pair("clustered", "pallas_sah")
+    *_, err = k5_host(bvh, scene_rays("clustered", 51), False, stack_depth=1)
+    assert err & 1
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        import dataclasses
+        tbb.walk_binary_plain(dataclasses.replace(bvh, stack_depth=1),
+                              *(torch.as_tensor(x)
+                                for x in scene_rays("clustered", 51)))
+
+
+@pytest.fixture(scope="module")
+def k6_host(tmp_path_factory):
+    """tri_blocks.cu's algorithm on the host (tri_blocks_host)."""
+    lib = host_library(tmp_path_factory, "tri_blocks.cu")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tri_blocks_host.argtypes = [p, p, p, i, p, p, p, p, i, p, p]
+    lib.tri_blocks_host.restype = ctypes.c_long
+
+    def run(blocks, r):
+        o, d, tmin, tmax = (torch.as_tensor(x).contiguous() for x in r)
+        n = o.shape[0]
+        out_t, out_id = torch.empty(n), torch.empty(n, dtype=torch.int32)
+        pairs = lib.tri_blocks_host(
+            ptr(blocks.aabb), ptr(blocks.w6), ptr(blocks.w4),
+            blocks.num_blocks, ptr(o), ptr(d), ptr(tmin), ptr(tmax), n,
+            ptr(out_t), ptr(out_id))
+        return out_t.numpy(), out_id.numpy(), pairs
+
+    return run
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_k6_equals_plain(k6_host, name):
+    """t, id and the number of (tile, block) pairs tested, exactly, on a
+    ray count that leaves a ragged last tile."""
+    _, blocks, _ = kind_pair(name, "pallas")
+    r = scene_rays(name, 60, 600)
+    t, ids, pairs = k6_host(blocks, r)
+    pt, pid, ppairs = ttb.closest_hit_plain(
+        blocks, *(torch.as_tensor(x) for x in r), count_pairs=True)
+    np.testing.assert_array_equal(t, pt.numpy())
+    np.testing.assert_array_equal(ids, pid.numpy())
+    # 3 tiles, each testing some blocks
+    assert pairs == ppairs and 0 < pairs <= 3 * blocks.num_blocks
+    assert (t < BIG).sum() > 10
+
+
+def test_wrappers_route_cpu_tensors_to_plain():
+    _, bvh, _ = kind_pair("clustered", "pallas_sah")
+    _, blocks, _ = kind_pair("clustered", "pallas")
+    r = [torch.as_tensor(x) for x in scene_rays("clustered", 70)]
+    before = (dict(tbb.LAUNCHES), dict(ttb.LAUNCHES))
+    for a, b in zip(tbb.closest_hit_triangles(bvh, *r, with_stats=True),
+                    tbb.closest_hit_triangles_plain(bvh, *r, True)):
+        assert torch.equal(a, b)
+    assert torch.equal(tbb.any_hit_triangles(bvh, *r),
+                       tbb.any_hit_triangles_plain(bvh, *r))
+    for a, b in zip(ttb.closest_hit(blocks, *r),
+                    ttb.closest_hit_plain(blocks, *r)):
+        assert torch.equal(a, b)
+    assert (dict(tbb.LAUNCHES), dict(ttb.LAUNCHES)) == before
+    meta = [x.to("meta") for x in r]
+    with pytest.raises(ValueError):
+        tbb.closest_hit_triangles(bvh, *meta)
+    with pytest.raises(ValueError):
+        ttb.closest_hit(blocks, *meta)

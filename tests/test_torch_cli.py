@@ -12,9 +12,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from cse168_raytracer_tpu.config import RenderConfig as JCfg  # noqa: E402
 from cse168_raytracer_tpu.render import tonemap as jtm  # noqa: E402
+from cse168_raytracer_tpu.scenes import build as jbuild  # noqa: E402
 from cse168_raytracer_tpu_torch import cli  # noqa: E402
 from cse168_raytracer_tpu_torch.config import RenderConfig  # noqa: E402
 from cse168_raytracer_tpu_torch.render import image_io  # noqa: E402
@@ -128,3 +131,91 @@ def test_default_device_is_the_card(monkeypatch):
         cli.main(["render", "--scene", "sphere"])
     scene, *_ = registry.build("sphere", cfg, device="cpu")
     assert scene.device == torch.device("cpu")
+
+
+def _constructors():
+    """Every public scene constructor, called as a scene author would,
+    with (kwargs) to which the device is added."""
+    from cse168_raytracer_tpu_torch import interop
+    from cse168_raytracer_tpu_torch.models import geometry, lights, scene
+    from cse168_raytracer_tpu_torch.models.materials import MaterialBuilder
+    from cse168_raytracer_tpu_torch.models.textures import make_environment
+    from cse168_raytracer_tpu_torch.render import camera
+    z3 = np.zeros((128, 3), np.float32)
+    z2 = np.zeros((128, 2), np.float32)
+    tri = {"vertices": np.eye(3, dtype=np.float32),
+           "normals": np.zeros((3, 3), np.float32),
+           "texcoords": np.zeros((0, 2), np.float32),
+           "tri_vidx": np.int32([[0, 1, 2]]), "tri_nidx": np.int32([[0, 1, 2]]),
+           "tri_tidx": np.int32([[-1, -1, -1]])}
+    cam = camera.make_camera((0, 0, 5), (0, 0, 0), device="cpu")
+    cam_np = type("Cam", (), {k: getattr(cam, k).numpy() for k in (
+        "eye", "view_dir", "up", "fov", "bg_color")})
+    light = dict(kind=0, position=(0, 1, 0), color=(1, 1, 1), wattage=10.0)
+    js, jst, _, _ = jbuild("test_sphere", JCfg(width=16, height=16))
+    js = jax.tree.map(np.asarray, js)
+    return {
+        "make_scene": lambda **kw: scene.make_scene(**kw),
+        "make_camera": lambda **kw: camera.make_camera((0, 0, 5), (0, 0, 0),
+                                                       **kw),
+        "camera_from_arrays": lambda **kw: camera.camera_from_arrays(
+            (0, 0, 5), (0, 0, -1), (0, 1, 0), 45.0, (0, 0, 0), **kw),
+        "make_light_table": lambda **kw: lights.make_light_table([light],
+                                                                 **kw),
+        "light_table_from_arrays": lambda **kw: lights.light_table_from_arrays(
+            [0], [(0, 1, 0)], [(0, 1, 0)], [(1, 1, 1)], [10.0], [0.0],
+            [(0, 0)], **kw),
+        "MaterialBuilder.build": lambda **kw: MaterialBuilder().build(**kw),
+        "pack_triangles": lambda **kw: geometry.pack_triangles([(tri, 0)],
+                                                               **kw),
+        "build_pack_from_arrays": lambda **kw: geometry.build_pack_from_arrays(
+            z3, z3, z3, z3, z3, z3, z2, z2, z2, np.zeros(128, bool),
+            np.zeros(128, np.int32), np.zeros(128, bool), **kw),
+        "make_sphere_pool": lambda **kw: geometry.make_sphere_pool(
+            [(0, 0, 0)], [1.0], [0], **kw),
+        "make_plane_pool": lambda **kw: geometry.make_plane_pool(
+            [(0, 0, 0)], [(0, 1, 0)], [0], **kw),
+        "empty_sphere_pool": lambda **kw: geometry.empty_sphere_pool(**kw),
+        "empty_plane_pool": lambda **kw: geometry.empty_plane_pool(**kw),
+        "empty_triangle_pack": lambda **kw: geometry.empty_triangle_pack(**kw),
+        "make_environment": lambda **kw: make_environment(**kw),
+        "interop.camera_from_numpy": lambda **kw: interop.camera_from_numpy(
+            cam_np, **kw),
+        "interop.scene_from_numpy": lambda **kw: interop.scene_from_numpy(
+            js, jst, **kw),
+    }
+
+
+def _tensors(obj):
+    """The tensors of a constructor's result, through nested dataclasses
+    and tuples."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [x for o in obj for x in _tensors(o)]
+    if hasattr(obj, "__dict__"):
+        return [x for o in vars(obj).values() for x in _tensors(o)]
+    return []
+
+
+CONSTRUCTORS = ("MaterialBuilder.build", "build_pack_from_arrays",
+                "camera_from_arrays", "empty_plane_pool", "empty_sphere_pool",
+                "empty_triangle_pack", "interop.camera_from_numpy",
+                "interop.scene_from_numpy", "light_table_from_arrays",
+                "make_camera", "make_environment", "make_light_table",
+                "make_plane_pool", "make_scene", "make_sphere_pool",
+                "pack_triangles")
+
+
+@pytest.mark.parametrize("name", CONSTRUCTORS)
+def test_constructors_default_to_the_card(monkeypatch, name):
+    """Each scene constructor, given no device, asks for the card and
+    raises without one; given device="cpu" it builds on the CPU."""
+    makers = _constructors()
+    assert sorted(makers) == list(CONSTRUCTORS)
+    make = makers[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    tensors = _tensors(make(device="cpu"))
+    assert tensors and all(x.device.type == "cpu" for x in tensors)

@@ -1,5 +1,7 @@
-"""The port's CUDA traversal kernel on the card, with and without its
-in-kernel counters (kernel K3).
+"""The port's CUDA kernels on the card: the wide-tree traversal with and
+without its in-kernel counters (K1-K4), the binary-tree traversal in its
+three modes (K5) and the block brute force (K6), each against its plain
+PyTorch version.
 
 These tests need an NVIDIA GPU and the CUDA toolkit; without a GPU they
 skip. They import neither jax nor the JAX package, so they run on a
@@ -126,3 +128,79 @@ def test_kernel_reports_stack_overflow(cuda):
     o, d, tmin, tmax = rays(61, 256, cuda)
     with pytest.raises(RuntimeError, match="stack overflow"):
         wide_bvh.closest_hit_triangles(shallow, o, d, tmin, tmax)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_binary_kernel_matches_plain_on_card(cuda, any_hit):
+    """Kernel K5 in its three modes (closest, any hit, with counters)
+    against walk_binary_plain on the same rays: t, id and counts equal."""
+    from cse168_raytracer_tpu_torch.ops import binary_bvh
+    pack = pack_triangles([(clustered_mesh(3000, 19), 0)], device=cuda)
+    bvh = binary_bvh.build_binary_bvh_sah(pack)[1]
+    o, d, tmin, tmax = rays(63, 4096, cuda)
+    mode = "any" if any_hit else "closest"
+    before = dict(binary_bvh.LAUNCHES)
+    kern = (binary_bvh.any_hit_triangles if any_hit
+            else binary_bvh.closest_hit_triangles)
+    got = kern(bvh, o, d, tmin, tmax)
+    got = got if isinstance(got, tuple) else (got,)
+    *counted, box, tri = kern(bvh, o, d, tmin, tmax, with_stats=True)
+    torch.cuda.synchronize()
+    assert binary_bvh.LAUNCHES[mode] == before[mode] + 1
+    assert binary_bvh.LAUNCHES["stats_" + mode] == before["stats_" + mode] + 1
+    tp, idp, n_int, n_leaf = binary_bvh.walk_binary_plain(
+        bvh, o, d, tmin, tmax, any_hit=any_hit)
+    for a, b, c in zip(got, counted, (tp, idp)):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    assert torch.equal(box, 2 * n_int)
+    assert torch.equal(tri, binary_bvh.K * n_leaf)
+    hit = tp < BIG
+    assert 0 < int(hit.sum()) < 4096 and int(n_leaf.sum()) > 0
+    # the wide tree's kernel finds the same t (one leaf test, one order)
+    wt = wide_bvh.brute_force_triangles(
+        wide_bvh.build_bvh4_sah(pack)[1], o, d, tmin, tmax)[0]
+    assert torch.equal(wt < BIG, hit)
+    if not any_hit:
+        assert torch.equal(wt[hit], tp[hit])
+
+
+def test_binary_kernel_reports_stack_overflow(cuda):
+    from cse168_raytracer_tpu_torch.ops import binary_bvh
+    pack = pack_triangles([(clustered_mesh(3000, 17), 0)], device=cuda)
+    bvh = binary_bvh.build_binary_bvh_sah(pack)[1]
+    assert bvh.n_nodes > 1
+    shallow = dataclasses.replace(bvh, stack_depth=1)
+    o, d, tmin, tmax = rays(64, 256, cuda)
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        binary_bvh.closest_hit_triangles(shallow, o, d, tmin, tmax)
+
+
+def test_block_kernel_matches_plain_on_card(cuda):
+    """Kernel K6 against its plain version: t and id equal, on a ray
+    count that leaves a ragged last tile; its t equal to the brute
+    force's."""
+    from cse168_raytracer_tpu_torch.ops import accel, tri_blocks
+    pack = pack_triangles([(clustered_mesh(3000, 20), 0)], block=256,
+                          device=cuda)
+    a = {k: getattr(pack, k).cpu().numpy() for k in ("v0", "e1", "e2",
+                                                     "valid")}
+    pack = accel.reorder_pack(pack, accel.morton_order(
+        a["v0"], a["e1"], a["e2"], a["valid"]))
+    blocks = tri_blocks.build_tri_blocks(pack)
+    o, d, tmin, tmax = rays(65, 4000, cuda)
+    before = tri_blocks.LAUNCHES["closest"]
+    t, ids = tri_blocks.closest_hit(blocks, o, d, tmin, tmax)
+    torch.cuda.synchronize()
+    assert tri_blocks.LAUNCHES["closest"] == before + 1
+    tp, idp, pairs = tri_blocks.closest_hit_plain(blocks, o, d, tmin, tmax,
+                                                  count_pairs=True)
+    assert torch.equal(t, tp) and torch.equal(ids, idp) and pairs > 0
+    hit = t < BIG
+    assert 0 < int(hit.sum()) < 4000
+    wt = wide_bvh.brute_force_triangles(
+        wide_bvh.build_bvh4_sah(pack)[1], o, d, tmin, tmax)[0]
+    # the block cull is not widened: a hit just past a block's box may be
+    # culled where no other ray of the tile enters it
+    both = (wt < BIG) & hit
+    assert float((wt < BIG).eq(hit).float().mean()) >= 0.999
+    assert torch.equal(wt[both], t[both])

@@ -83,7 +83,8 @@ def assert_pack_equal(jpack, tpack, fields=PACK_FIELDS):
 def two_packs(name):
     mesh = MESHES[name]()
     meshes = [(mesh, 2), (random_mesh(5, 9), 1)]
-    return jgeo.pack_triangles(meshes), tgeo.pack_triangles(meshes)
+    return (jgeo.pack_triangles(meshes),
+            tgeo.pack_triangles(meshes, device="cpu"))
 
 
 @pytest.mark.parametrize("name", sorted(MESHES))
@@ -204,8 +205,9 @@ def test_interop_round_trip():
     from cse168_raytracer_tpu.scenes import build as jbuild
     from cse168_raytracer_tpu_torch import interop
     js, jst, jcam, _ = jbuild("test_sphere", JCfg(width=16, height=16))
-    ts, tst = interop.scene_from_numpy(jax.tree.map(np.asarray, js), jst)
-    tcam = interop.camera_from_numpy(jax.tree.map(np.asarray, jcam))
+    ts, tst = interop.scene_from_numpy(jax.tree.map(np.asarray, js), jst,
+                                       "cpu")
+    tcam = interop.camera_from_numpy(jax.tree.map(np.asarray, jcam), "cpu")
     assert_pack_equal(js.tris, ts.tris)
     assert_bytes_equal(np.asarray(js.materials.kd), ts.materials.kd.numpy(),
                        "kd")

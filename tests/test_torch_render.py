@@ -67,8 +67,9 @@ def jax_scene(name, res):
 
 def port_inputs(scene, static, cam):
     ps, pst = interop.scene_from_numpy(jax.tree.map(np.asarray, scene),
-                                       static)
-    return ps, pst, interop.camera_from_numpy(jax.tree.map(np.asarray, cam))
+                                       static, "cpu")
+    return ps, pst, interop.camera_from_numpy(jax.tree.map(np.asarray, cam),
+                                              "cpu")
 
 
 def jax_render_and_grad(scene, static, cam, res):

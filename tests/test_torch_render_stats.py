@@ -34,11 +34,11 @@ LIT_LIGHT = [dict(kind=0, position=(0.0, 8.0, 0.0), color=(1, 1, 1),
 
 @pytest.fixture
 def traversals(monkeypatch):
-    """Every triangle traversal of the scene-level hit queries, recorded
+    """Every wide-tree traversal of the scene-level hit queries, recorded
     with its inputs and outputs."""
     calls = []
     for mode in ("closest", "any"):
-        real = getattr(taccel, f"{mode}_hit_triangles")
+        real = getattr(twb, f"{mode}_hit_triangles")
 
         def record(bvh, o, d, tmin, tmax, with_stats=False, _real=real,
                    _mode=mode):
@@ -52,7 +52,7 @@ def traversals(monkeypatch):
                               out=out))
             return out
 
-        monkeypatch.setattr(taccel, f"{mode}_hit_triangles", record)
+        monkeypatch.setattr(twb, f"{mode}_hit_triangles", record)
     return calls
 
 

@@ -171,7 +171,8 @@ def test_nee_sample(feed, li, sample_idx, total):
 @pytest.mark.parametrize("aperture", [0.0, 0.2])
 def test_eye_rays_jittered_and_thin_lens(feed, aperture):
     jcam = jc.make_camera(eye=(8, 1.5, 1), look_at=(0, 2.5, -1), fov=55)
-    tcam = tc.make_camera(eye=(8, 1.5, 1), look_at=(0, 2.5, -1), fov=55)
+    tcam = tc.make_camera(eye=(8, 1.5, 1), look_at=(0, 2.5, -1), fov=55,
+                          device="cpu")
     w, h = 24, 16
     ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
     xs, ys = xs.ravel(), ys.ravel()
@@ -210,7 +211,7 @@ def test_draw_wrappers_take_uniforms_from_the_generator():
     for a, b in pairs:
         for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
             assert torch.equal(x, y)
-    cam = tc.make_camera(eye=(0, 1, 5), look_at=(0, 0, 0))
+    cam = tc.make_camera(eye=(0, 1, 5), look_at=(0, 0, 0), device="cpu")
     x = torch.arange(64) % 8
     y = torch.arange(64) // 8
     o1, r1 = tc.draw_eye_rays(cam, x, y, 8, 8, g1, 0.2, 15.3)

@@ -84,7 +84,8 @@ def build_both(name, width):
     ensure_native()
     mesh = MESHES[name]()
     meshes = [(mesh, 2), (random_mesh(5, 9), 1)]
-    jpack, tpack = jgeo.pack_triangles(meshes), tgeo.pack_triangles(meshes)
+    jpack = jgeo.pack_triangles(meshes)
+    tpack = tgeo.pack_triangles(meshes, device="cpu")
     jnew, jbvh = jpb.build_pallas_bvh4_sah(jpack, width=width)
     tnew, tbvh = twb.build_bvh4_sah(tpack, width=width)
     return jpack, jnew, jbvh, tpack, tnew, tbvh
