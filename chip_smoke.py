@@ -4,8 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, one
-nvcc each, all started together (phase 2), and holds the wide-tree
-kernel against a brute-force oracle on the card (phase 3); drives the
+nvcc each, all started together, and prints each kernel's registers,
+shared memory and spills (phase 2); holds the wide-tree kernel (the
+card walk) against a brute-force oracle on the card, with a ray count
+that is not a multiple of 32, dead rays inside warps and a mesh of tied
+triangles among the cases (phase 3); drives the
 port's main path (sponza_proxy at 512x512, trace depth 4, forward and
 backward of sum(render_hdr) with respect to the material table kd, as
 bench.py does for the JAX package; once as registered and once with its
@@ -13,10 +16,12 @@ light moved inside the atrium, see lit_sponza) (phase 4); checks the
 card's renders against the CPU's, Whitted and path-traced, and the
 path-traced children on the card's own generator (phase 5); holds the
 kernel, with and without its counters (K3), against its plain PyTorch
-version walk_plain on every ray of the main path and times both (phase
-6), and on phase 3's rays (phase 7); drives the command line's `render`
-on the card at 512x512 with --stats, Whitted and path-traced through the
-thin lens at 16 spp, each as registered and lit (phase 8); and runs
+version walk_plain and the per-ray kernel it replaced on every ray of
+the main path, and times all three, the two kernels in turns (phase 6),
+and holds it against walk_plain on phase 3's rays (phase 7); drives the
+command line's `render` on the card at 512x512 with --stats, Whitted
+and path-traced through the thin lens at 16 spp, each as registered and
+lit (phase 8); and runs
 the A/B accelerator kinds on lit sponza_proxy (phase 9): (a) the fwd+bwd
 step with "pallas_sah" (the binary tree, kernel K5) and "pallas" (the
 Morton-block brute force, K6) against the "auto" step, (b) K5 in its
@@ -25,7 +30,7 @@ primary and shadow rays, timed with their bounds, and against the brute
 force, (c) a collect_stats render through K5 and traversal_stats, (d) a
 forward render with each of "block", "bvh", "packet" and
 "pallas_forest" against auto's, and (e) the W=8 kernel (K4) on the
-400k-triangle proxy, timed with its bound.
+400k-triangle proxy, timed with its bound and beside the per-ray kernel.
 Each phase prints its own lines; any failure raises and exits non-zero.
 The second-to-last line is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it
@@ -160,6 +165,45 @@ def random_mesh(n_tri, rng):
             "tri_nidx": f, "tri_tidx": np.full((n_tri, 3), -1, np.int64)}
 
 
+def tie_mesh(n_base, rng):
+    """n_base triangles on a 1/16 grid, each twice as it is and twice
+    scaled by 2 about its first vertex. Every hit ties: the copies have
+    equal operands and fall on two lanes of one leaf, and the scaled
+    triangle has the same t exactly (its operands scale by powers of
+    two) but another centroid, which the builder may put in another
+    leaf."""
+    v0 = rng.integers(-32, 33, (n_base, 3)) / 16
+    e1 = rng.integers(-4, 5, (n_base, 3)) / 16
+    e2 = rng.integers(-4, 5, (n_base, 3)) / 16
+    tri = np.stack([v0, v0 + e1, v0 + e2], 1)
+    big = np.stack([v0, v0 + 2 * e1, v0 + 2 * e2], 1)
+    v = np.concatenate([tri, big, tri, big]).reshape(-1, 3)
+    n = v.shape[0] // 3
+    f = np.arange(3 * n, dtype=np.int64).reshape(n, 3)
+    return {"vertices": v.astype(np.float32),
+            "normals": np.tile(np.float32([[0, 0, 1]]), (3 * n, 1)),
+            "texcoords": np.zeros((0, 2), np.float32), "tri_vidx": f,
+            "tri_nidx": f, "tri_tidx": np.full((n, 3), -1, np.int64)}
+
+
+def tie_counts(bvh, o, d, t):
+    """Of the rays that hit (t < BIG), how many have a second triangle
+    at their t in the winning leaf, and how many in another leaf."""
+    import torch
+    from cse168_raytracer_tpu_torch.core.vecmath import cross
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    hr = torch.nonzero(t < 3e37)[:, 0]
+    o, d, th = o[hr], d[hr], t[hr]
+    m = cross(o, d)
+    col = lambda x: x[:, None, None]
+    tm = wb._lane_t(bvh.leafW[None], [col(x) for x in (*d.T, *m.T)],
+                    [col(x) for x in o.T], col(torch.zeros_like(th)),
+                    col(torch.full_like(th, 1e10)))        # (R, L, K)
+    per_leaf = (tm == th[:, None, None]).sum(2)
+    return (int((per_leaf >= 2).any(1).sum()),
+            int(((per_leaf > 0).sum(1) >= 2).sum()))
+
+
 def primary_rays(cam, width, height, device):
     """All pinhole rays of a frame in the integrator's block order."""
     import torch
@@ -292,6 +336,36 @@ def time_cuda(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
+def time_turns(new, old, reps, label):
+    """Mean milliseconds of new() and of old() by time_cuda, timed in
+    turns old, new, new, old so that drift in the card's clock or its
+    neighbours' load falls on both."""
+    o1, n1, n2, o2 = (time_cuda(f, reps) for f in (old, new, new, old))
+    log(f"  {label}: in turns per-ray {o1:.3f}, card walk {n1:.3f}, card "
+        f"walk {n2:.3f}, per-ray {o2:.3f} ms")
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def compare_per_ray(label, bvh, args):
+    """The per-ray kernel (the design the card walk replaced) against the
+    card walk on the same rays, in both modes, with and without
+    counters: every output equal."""
+    import torch
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    o, d = args[:2]
+    bounds = wb._bounds(o, *args[2:])
+    for any_hit in (False, True):
+        for stats in (False, True):
+            new = wb._launch(bvh, o, d, *bounds, any_hit, stats)
+            old = wb._launch_per_ray(bvh, o, d, *bounds, any_hit, stats)
+            for a, b in zip(new, old):
+                if a is not None and not torch.equal(a, b):
+                    raise AssertionError(f"{label}: the per-ray kernel and "
+                                         "the card walk differ")
+    log(f"  {label}: per-ray kernel = card walk in every output, both "
+        "modes, with and without counters")
+
+
 def fwd_bwd(scene, static, cam, cfg, gen=None):
     from cse168_raytracer_tpu_torch.render.integrator import render_hdr
     kd = scene.materials.kd.detach().clone().requires_grad_(True)
@@ -342,25 +416,75 @@ def phase_build():
     build_s = time.perf_counter() - t0
     log(f"[2 build] {len(cuda_build.SOURCES)} kernel sources built and "
         f"loaded in {build_s:.2f} s")
+    ptxas = {}
     for src in cuda_build.SOURCES:
-        info = cuda_build.BUILD_INFO.get(src)
-        log(f"[2 build] {src}: " + (f"nvcc {info['seconds']:.2f} s" if info
-                                    else f"already built in "
-                                         f"{cuda_build.BUILD}"))
-        for line in (info["log"] if info else "").splitlines():
-            if "registers" in line or "spill" in line:
-                log("   ptxas:", line.strip())
+        info = cuda_build.BUILD_INFO[src]
+        log(f"[2 build] {src}: " + (f"nvcc {info['seconds']:.2f} s"
+                                    if info["seconds"] is not None else
+                                    f"already built, {info['path']}"))
+        for name, k in ptxas_kernels(info["log"]).items():
+            ptxas[name] = k
+            log(f"   ptxas: {name}: {k['registers']} registers, "
+                f"{k['smem']} bytes static shared memory, spill stores "
+                f"{k['spill_stores']} bytes, loads {k['spill_loads']} bytes")
+    # the card walk's eight instantiations, each reported and spilling
+    # nothing: spills would put its leaf operands in local memory
+    for w in (4, 8):
+        for mode in ("closest", "any"):
+            for stats in ("", " stats"):
+                name = f"traverse_warp W={w} {mode}{stats}"
+                k = ptxas.get(name)
+                if k is None:
+                    raise RuntimeError(f"phase 2: nvcc's report has no {name}")
+                if k["spill_stores"] or k["spill_loads"]:
+                    raise RuntimeError(f"phase 2: {name} spills "
+                                       f"{k['spill_stores']} bytes of stores "
+                                       f"and {k['spill_loads']} of loads")
     sah.load_native()
     log(f"[2 build] native SAH builder {sah.native_library_path()} loaded")
-    return build_s
+    return build_s, ptxas
+
+
+def ptxas_kernels(text):
+    """{kernel: {"registers", "smem", "spill_stores", "spill_loads"}}
+    from nvcc's -Xptxas -v report; traverse_wide.cu's kernels named as
+    "traverse_warp W=4 closest" or "traverse_per_ray W=8 any stats"."""
+    import re
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+            t = re.search(r"(traverse_warp|traverse_per_ray)ILi(\d)ELb"
+                          r"([01])ELb([01])E", cur)
+            if t:
+                cur = (f"{t.group(1)} W={t.group(2)} "
+                       f"{'any' if t.group(3) == '1' else 'closest'}"
+                       + (" stats" if t.group(4) == "1" else ""))
+            out.setdefault(cur, {"registers": 0, "smem": 0,
+                                 "spill_stores": 0, "spill_loads": 0})
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, line)
+            if m:
+                out[cur][key] = int(m.group(1))
+    return out
 
 
 def phase_kernel_vs_oracle(device):
     """Phase 3: the kernel against the brute-force oracle on random
     meshes and on 8,192 of the main path's primary and shadow rays, on
-    sponza_proxy's W=4 tree and a 400k-triangle W=8 one. Returns the
-    (label, tree, rays) cases for phase 7 and the sponza_proxy rays for
-    phase 9."""
+    sponza_proxy's W=4 tree and a 400k-triangle W=8 one, and on both
+    trees with a ragged ray count and with dead rays inside warps; a tie
+    mesh on both widths (t against the brute force). Returns the (label,
+    tree, rays) cases for phase 7 and the sponza_proxy rays for phase
+    9."""
     import torch
     from cse168_raytracer_tpu_torch.config import RenderConfig
     from cse168_raytracer_tpu_torch.models.geometry import pack_triangles
@@ -371,6 +495,7 @@ def phase_kernel_vs_oracle(device):
     from cse168_raytracer_tpu_torch.models.materials import MaterialBuilder
     from cse168_raytracer_tpu_torch.models.lights import LIGHT_POINT
     from cse168_raytracer_tpu_torch.models.scene import make_scene
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
     cases = []
     rng = np.random.default_rng(SEED)
     log("[3 kernel vs oracle]")
@@ -419,6 +544,40 @@ def phase_kernel_vs_oracle(device):
     compare_oracle("sponza_proxy 400k shadow", big.accel, so, sd, 0.0, stmax)
     cases += [("sponza_proxy 400k primary", big.accel, (o, d, 0.0, 1e12)),
               ("sponza_proxy 400k shadow", big.accel, (so, sd, 0.0, stmax))]
+
+    # the card walk's edge cases, each on both widths: a ray count that
+    # leaves the last warp 31 rays, and dead rays (tmax < tmin) inside
+    # every warp; phase 7 holds them, and the ties, against walk_plain
+    m = N_SUBSET - 1
+    dead = torch.where(torch.arange(N_SUBSET, device=device) % 5 == 2,
+                       -1.0, 1e12)
+    for label, tree in (("sponza_proxy", scene.accel),
+                        ("sponza_proxy 400k", big.accel)):
+        args = {f"{label} ragged, {m} rays": (o[:m], d[:m], 0.0, 1e12),
+                f"{label} dead every 5th": (o, d, 0.0, dead)}
+        for key, a in args.items():
+            compare_oracle(key, tree, *a)
+            cases.append((key, tree, a))
+    pack = pack_triangles([(tie_mesh(1000, rng), 0)], device=device)
+    n_tie = N_SUBSET // 2
+    td = torch.as_tensor(rng.normal(0, 1, (n_tie, 3)).astype(np.float32),
+                         device=device)
+    td[:, 2] = td[:, 2].abs()
+    td = (td / td.norm(dim=1, keepdim=True)).contiguous()
+    to = torch.tensor([[0.0, 0.0, -5.0]], device=device).repeat(n_tie, 1)
+    for width in (4, 8):
+        bvh = build_bvh4_sah(pack, width=width)[1]
+        t = wb.closest_hit_triangles(bvh, to, td, 0.0, 1e10)[0]
+        tp = wb.brute_force_triangles(bvh, to, td, 0.0, 1e10)[0]
+        in_leaf, across = tie_counts(bvh, to, td, tp)
+        log(f"  ties: W={width} rays={n_tie} hits={int((tp < 3e37).sum())}; "
+            f"{in_leaf} of them tie in the winning leaf, {across} across "
+            f"leaves; t equal to the brute force's: {torch.equal(t, tp)}")
+        if not torch.equal(t, tp) or not in_leaf or not across:
+            raise AssertionError(f"ties W={width}: t differs from the brute "
+                                 "force's, or the mesh makes no ties")
+        cases.append((f"ties ({pack.n_valid} tris)", bvh,
+                      (to, td, 0.0, 1e10)))
     return cases, sponza_rays
 
 
@@ -468,7 +627,8 @@ def phase_main_path(device):
     build_s = time.perf_counter() - t0
     log(f"[4 main path] sponza_proxy {scene.tris.n_valid} tris, "
         f"W={scene.accel.width}, {scene.accel.n_nodes} nodes, "
-        f"{scene.accel.n_leaves} leaves, accel build {build_s:.3f} s")
+        f"{scene.accel.n_leaves} leaves, accel build {build_s:.3f} s; "
+        f"{stack_line(scene.accel)}")
 
     n_iter = 5
     out = {"scene": scene, "cam": cam, "build_s": build_s}
@@ -508,6 +668,13 @@ def phase_main_path(device):
         if out["launches"][k] < 1:
             raise AssertionError(f"main path launched no {k} kernel")
     return out
+
+
+def stack_line(bvh):
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    nbytes = wb._stack_smem_bytes(wb._kernel_lib(), bvh.stack_depth)
+    return (f"the card walk's stacks: {bvh.stack_depth} slots a thread, "
+            f"{nbytes} bytes of dynamic shared memory a block")
 
 
 def phase_card_vs_cpu(device):
@@ -626,8 +793,13 @@ def phase_plain_timing(device, main, errs):
         plain = (wb.any_hit_triangles_plain if any_hit
                  else wb.closest_hit_triangles_plain)
         n = args[0].shape[0]
-        ms = time_cuda(lambda: kern(bvh, *args), 10)
-        stats_ms = time_cuda(lambda: kern(bvh, *args, with_stats=True), 10)
+        compare_per_ray(f"main-path {key} rays", bvh, args)
+        per_ray = lambda stats: wb._launch_per_ray(bvh, *args, any_hit, stats)
+        ms, per_ray_ms = time_turns(lambda: kern(bvh, *args),
+                                    lambda: per_ray(False), 10, mode)
+        stats_ms, stats_per_ray_ms = time_turns(
+            lambda: kern(bvh, *args, with_stats=True), lambda: per_ray(True),
+            10, mode + " with counters")
         plain_ms = time_cuda(lambda: plain(bvh, *args), 2)
         stats_plain_ms = time_cuda(lambda: plain(bvh, *args,
                                                  with_stats=True), 2)
@@ -645,11 +817,15 @@ def phase_plain_timing(device, main, errs):
         for counting in (False, True):
             work[(mode, counting)] = traversal_work(bvh, n, any_hit, counting,
                                                     internal, leaves)
-        out[mode] = {"ms": ms, "rays": n, "plain_ms": plain_ms,
-                     "plain_rays": n, **bound(work[(mode, False)])}
-        out["stats_" + mode] = {"ms": stats_ms, "plain_ms": stats_plain_ms}
+        out[mode] = {"ms": ms, "per_ray_ms": per_ray_ms, "rays": n,
+                     "plain_ms": plain_ms, "plain_rays": n,
+                     **bound(work[(mode, False)])}
+        out["stats_" + mode] = {"ms": stats_ms,
+                                "per_ray_ms": stats_per_ray_ms,
+                                "plain_ms": stats_plain_ms}
         log(f"[6 plain timing] {key} rays, {mode}: kernel {ms:.3f} ms, with "
-            f"counters {stats_ms:.3f} ms, for {n} rays; walk_plain "
+            f"counters {stats_ms:.3f} ms (per-ray kernel {per_ray_ms:.3f} "
+            f"and {stats_per_ray_ms:.3f} ms), for {n} rays; walk_plain "
             f"{plain_ms:.1f} ms ({stats_plain_ms:.1f} ms with counts); "
             f"{internal} internal and {leaves} leaf visits "
             f"({internal / n:.3f} and {leaves / n:.3f} per ray); oracle on "
@@ -658,16 +834,18 @@ def phase_plain_timing(device, main, errs):
                f" (all {n} would take ~{est_s:.0f} s, over its "
                f"{PLAIN_BUDGET_S:.0f} s budget)"))
         log(f"[6 bound] {mode}: {bound_line(work[(mode, False)])}; kernel "
-            f"{ms:.3f} ms = {out[mode]['bound_ms'] / ms * 100:.2f}% of bound")
+            f"{ms:.3f} ms = {out[mode]['bound_ms'] / ms * 100:.2f}% of bound"
+            f" (per-ray kernel "
+            f"{out[mode]['bound_ms'] / per_ray_ms * 100:.2f}%)")
     both = [work[(m, True)] for m in ("closest", "any")]
     total = {k: sum(w[k] for w in both) for k in both[0]}
     out["stats"] = {
-        "ms": out["stats_closest"]["ms"] + out["stats_any"]["ms"],
-        "plain_ms": (out["stats_closest"]["plain_ms"]
-                     + out["stats_any"]["plain_ms"]),
+        **{k: out["stats_closest"][k] + out["stats_any"][k]
+           for k in ("ms", "per_ray_ms", "plain_ms")},
         "rays": 2 * RES * RES, "plain_rays": 2 * RES * RES, **bound(total)}
     log(f"[6 bound] counting, both modes: {bound_line(total)}; kernels "
-        f"{out['stats']['ms']:.3f} ms")
+        f"{out['stats']['ms']:.3f} ms (per-ray kernels "
+        f"{out['stats']['per_ray_ms']:.3f} ms)")
     wb.LAUNCHES.update(saved)
     return out
 
@@ -1163,20 +1341,27 @@ def phase_k4(device, cam, cfg):
     args = (o, d, 0.0, 1e12)
     errs = {"closest": 0.0, "any": 0.0, "stats": 0.0}
     visits = compare_plain("K4 primary rays", bvh, args, errs)
+    compare_per_ray("K4 primary rays", bvh, args)
     n = o.shape[0]
-    ms = time_cuda(lambda: wb.closest_hit_triangles(bvh, *args), 10)
+    ms, per_ray_ms = time_turns(
+        lambda: wb.closest_hit_triangles(bvh, *args),
+        lambda: wb._launch_per_ray(bvh, *args, False), 10, "K4 closest")
     plain_ms = time_cuda(lambda: wb.closest_hit_triangles_plain(bvh, *args),
                          2)
     internal, leaves = visits["closest"]
     w = traversal_work(bvh, n, False, False, internal, leaves)
     log(f"[9e K4] {big.tris.n_valid} tris, W=8, {bvh.n_nodes} nodes, "
-        f"{bvh.n_leaves} leaves, accel build {build_s:.3f} s; one fwd+bwd "
+        f"{bvh.n_leaves} leaves, accel build {build_s:.3f} s; "
+        f"{stack_line(bvh)}; one fwd+bwd "
         f"step launched {launches}; closest+attr kernel {ms:.3f} ms for {n} "
-        f"primary rays, walk_plain {plain_ms:.1f} ms; {internal / n:.3f} "
+        f"primary rays (per-ray kernel {per_ray_ms:.3f} ms), walk_plain "
+        f"{plain_ms:.1f} ms; {internal / n:.3f} "
         f"internal and {leaves / n:.3f} leaf visits per ray")
     log(f"[9e bound] K4: {bound_line(w)}; kernel {ms:.3f} ms = "
-        f"{bound(w)['bound_ms'] / ms * 100:.2f}% of bound")
-    return {"ms": ms, "rays": n, "plain_ms": plain_ms, "plain_rays": n,
+        f"{bound(w)['bound_ms'] / ms * 100:.2f}% of bound (per-ray kernel "
+        f"{bound(w)['bound_ms'] / per_ray_ms * 100:.2f}%)")
+    return {"ms": ms, "per_ray_ms": per_ray_ms, "rays": n,
+            "plain_ms": plain_ms, "plain_rays": n,
             **bound(w), "launches": launches["closest"] + launches["any"],
             "err": errs["closest"]}
 
@@ -1198,7 +1383,7 @@ def phase_kinds(device, sponza_rays):
 
 def main():
     device, card = phase_device()
-    build_s = phase_build()
+    build_s, ptxas = phase_build()
     errs = {"closest": 0.0, "any": 0.0, "stats": 0.0}
     k3_cases, sponza_rays = phase_kernel_vs_oracle(device)
     # phase 7 runs on phase 3's trees while they are on the card; they
@@ -1215,6 +1400,14 @@ def main():
     src = "cse168_raytracer_tpu_torch/csrc/traverse_wide.cu"
     replaces = "cse168_raytracer_tpu/ops/pallas_bvh.py:1056"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "rays", "plain_rays")
+    wkeys = keys + ("per_ray_ms",)
+
+    def regs(*names):
+        """Registers and spilled bytes of the card walk's kernels."""
+        ks = [ptxas["traverse_warp " + x] for x in names]
+        return {"registers": [k["registers"] for k in ks],
+                "spill_bytes": [k["spill_stores"] + k["spill_loads"]
+                                for k in ks]}
     src5 = "cse168_raytracer_tpu_torch/csrc/traverse_binary.cu"
     sah_launches = steps["pallas_sah step"]["launches"]
     kernels = [
@@ -1222,24 +1415,26 @@ def main():
          "source": src, "replaces": replaces,
          "launches": main_run["launches"]["closest"],
          "max_abs_err": errs["closest"], "library_ms": None,
-         **{k: timing["closest"][k] for k in keys}},
+         **{k: timing["closest"][k] for k in wkeys},
+         **regs("W=4 closest")},
         {"name": "traverse_wide any-hit (W=4)", "route": "cuda",
          "source": src, "replaces": replaces,
          "launches": main_run["launches"]["any"],
          "max_abs_err": errs["any"], "library_ms": None,
-         **{k: timing["any"][k] for k in keys}},
+         **{k: timing["any"][k] for k in wkeys}, **regs("W=4 any")},
         {"name": "traverse_wide with counters, closest+attr and any-hit "
                  "(K3)", "route": "cuda", "source": src,
          "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:1020",
          "launches": (cli_launches["stats_closest"]
                       + cli_launches["stats_any"]),
          "max_abs_err": errs["stats"], "library_ms": None,
-         **timing["stats"]},
+         **timing["stats"], **regs("W=4 closest stats", "W=4 any stats")},
         {"name": "traverse_wide W=8 tree (K4), timed closest+attr",
          "route": "cuda", "source": src,
          "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:1331",
          "launches": k4["launches"], "max_abs_err": k4["err"],
-         "library_ms": None, **{k: k4[k] for k in keys}},
+         "library_ms": None, **{k: k4[k] for k in wkeys},
+         **regs("W=8 closest", "W=8 any")},
         {"name": "traverse_binary closest (K5)", "route": "cuda",
          "source": src5,
          "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:276",

@@ -14,7 +14,8 @@
 // The code is plain C++ so that it also compiles for the host (g++ -x
 // c++, where HD is `inline` and the intrinsics are the plain operators),
 // where the CPU tests run the kernels' walks against their plain
-// versions.
+// versions; only warp_shade_leaf, the card's warp-cooperative form of
+// shade_leaf, is device code.
 
 #pragma once
 
@@ -65,40 +66,50 @@ HD Ray load_ray(const float* o, const float* d, const float* tmin,
   return r;
 }
 
-// One numerator of beta, gamma or den: six operand rows `stride` floats
-// apart, against [d, m], summed left to right.
-HD float sum6(const float* w, long stride, const Ray& r) {
-  float acc = __fmul_rn(LDG(w), r.d[0]);
-  acc = __fadd_rn(acc, __fmul_rn(LDG(w + stride), r.d[1]));
-  acc = __fadd_rn(acc, __fmul_rn(LDG(w + 2 * stride), r.d[2]));
-  acc = __fadd_rn(acc, __fmul_rn(LDG(w + 3 * stride), r.m[0]));
-  acc = __fadd_rn(acc, __fmul_rn(LDG(w + 4 * stride), r.m[1]));
-  return __fadd_rn(acc, __fmul_rn(LDG(w + 5 * stride), r.m[2]));
+// One numerator of beta, gamma or den: six operands against [d, m],
+// summed left to right. Every leaf test of the port sums in this order.
+HD float dot6(const float w[6], const Ray& r) {
+  float acc = __fmul_rn(w[0], r.d[0]);
+  acc = __fadd_rn(acc, __fmul_rn(w[1], r.d[1]));
+  acc = __fadd_rn(acc, __fmul_rn(w[2], r.d[2]));
+  acc = __fadd_rn(acc, __fmul_rn(w[3], r.m[0]));
+  acc = __fadd_rn(acc, __fmul_rn(w[4], r.m[1]));
+  return __fadd_rn(acc, __fmul_rn(w[5], r.m[2]));
 }
 
-// The t numerator: four operand rows against [o, 1].
+// The t numerator: four operands against [o, 1].
+HD float dot4(const float w[4], const Ray& r) {
+  float acc = __fmul_rn(w[0], r.o[0]);
+  acc = __fadd_rn(acc, __fmul_rn(w[1], r.o[1]));
+  acc = __fadd_rn(acc, __fmul_rn(w[2], r.o[2]));
+  return __fadd_rn(acc, w[3]);
+}
+
+// dot6 and dot4 of operand rows `stride` floats apart, from global
+// memory through the read-only cache.
+HD float sum6(const float* w, long stride, const Ray& r) {
+  const float v[6] = {LDG(w), LDG(w + stride), LDG(w + 2 * stride),
+                      LDG(w + 3 * stride), LDG(w + 4 * stride),
+                      LDG(w + 5 * stride)};
+  return dot6(v, r);
+}
+
 HD float sum4(const float* w, long stride, const Ray& r) {
-  float acc = __fmul_rn(LDG(w), r.o[0]);
-  acc = __fadd_rn(acc, __fmul_rn(LDG(w + stride), r.o[1]));
-  acc = __fadd_rn(acc, __fmul_rn(LDG(w + 2 * stride), r.o[2]));
-  return __fadd_rn(acc, LDG(w + 3 * stride));
+  const float v[4] = {LDG(w), LDG(w + stride), LDG(w + 2 * stride),
+                      LDG(w + 3 * stride)};
+  return dot4(v, r);
 }
 
 // The same two sums from shared memory (no read-only cache load there).
 HD float sum6_s(const float* w, int stride, const Ray& r) {
-  float acc = __fmul_rn(w[0], r.d[0]);
-  acc = __fadd_rn(acc, __fmul_rn(w[stride], r.d[1]));
-  acc = __fadd_rn(acc, __fmul_rn(w[2 * stride], r.d[2]));
-  acc = __fadd_rn(acc, __fmul_rn(w[3 * stride], r.m[0]));
-  acc = __fadd_rn(acc, __fmul_rn(w[4 * stride], r.m[1]));
-  return __fadd_rn(acc, __fmul_rn(w[5 * stride], r.m[2]));
+  const float v[6] = {w[0], w[stride], w[2 * stride], w[3 * stride],
+                      w[4 * stride], w[5 * stride]};
+  return dot6(v, r);
 }
 
 HD float sum4_s(const float* w, int stride, const Ray& r) {
-  float acc = __fmul_rn(w[0], r.o[0]);
-  acc = __fadd_rn(acc, __fmul_rn(w[stride], r.o[1]));
-  acc = __fadd_rn(acc, __fmul_rn(w[2 * stride], r.o[2]));
-  return __fadd_rn(acc, w[3 * stride]);
+  const float v[4] = {w[0], w[stride], w[2 * stride], w[3 * stride]};
+  return dot4(v, r);
 }
 
 // t of the hit from the four numerators, or BIG where the triangle does
@@ -140,6 +151,103 @@ HD float shade_leaf(const float* lw, const Ray& r, float curmax, int* lane) {
   *lane = lj;
   return lt;
 }
+
+// Triangle k's ten operand rows, held in registers.
+struct TriOps {
+  float b[6], g[6], den[6], tn[4];
+};
+
+// shade_leaf's test of one triangle whose operands a thread holds.
+HD float tri_t(const TriOps& op, const Ray& r, float curmax) {
+  return accept(dot6(op.b, r), dot6(op.g, r), dot6(op.den, r),
+                dot4(op.tn, r), r.tmin, curmax);
+}
+
+#ifdef __CUDACC__
+
+constexpr unsigned FULL_WARP = 0xffffffffu;
+
+// shade_leaf for the rays of the lanes in `group`, tested by the whole
+// warp together. The group is warp-uniform and all 32 lanes call this.
+// Lane l loads triangles 4l..4l+3 of the leaf table, one 16-byte load
+// per operand row (so each row is one contiguous 512-byte read of the
+// warp), and keeps their operands in registers. Then, for each ray of
+// the group, every lane takes the ray's d, m, o, tmin and curmax from
+// its lane by shuffle and tests its four triangles, and the warp
+// reduces to the least t (__reduce_min_sync on an order-keeping int
+// key) and, on equal t, the least k: shade_leaf's first-lane-wins rule,
+// since the first lane that holds the least t holds the first k with
+// it; the t returned is that lane's. A lane of the group gets its ray's
+// answer (t, or BIG when no triangle accepts it, and the lane), every
+// other lane BIG.
+template <int K>
+__device__ __forceinline__ float warp_shade_leaf(const float* lw,
+                                                 unsigned group,
+                                                 const Ray& r, float curmax,
+                                                 int* lane) {
+  static_assert(K == 4 * 32, "four triangles per lane");
+  const int l = threadIdx.x & 31;
+  const float* base = lw + 4 * l;
+  TriOps op[4];
+  for (int a = 0; a < 6; ++a) {
+    const float4 vb = __ldg((const float4*)(base + a * 4 * K));
+    const float4 vg = __ldg((const float4*)(base + a * 4 * K + K));
+    const float4 vd = __ldg((const float4*)(base + a * 4 * K + 2 * K));
+    const float b[4] = {vb.x, vb.y, vb.z, vb.w};
+    const float g[4] = {vg.x, vg.y, vg.z, vg.w};
+    const float dn[4] = {vd.x, vd.y, vd.z, vd.w};
+    for (int j = 0; j < 4; ++j) {
+      op[j].b[a] = b[j];
+      op[j].g[a] = g[j];
+      op[j].den[a] = dn[j];
+    }
+  }
+  for (int a = 0; a < 4; ++a) {
+    const float4 vt = __ldg((const float4*)(base + (6 + a) * 4 * K + 3 * K));
+    const float tn[4] = {vt.x, vt.y, vt.z, vt.w};
+    for (int j = 0; j < 4; ++j) op[j].tn[a] = tn[j];
+  }
+  float my_t = BIG;
+  int my_lane = 0;
+  for (unsigned g = group; g; g &= g - 1) {
+    const int q = __ffs(g) - 1;
+    Ray rq;
+    for (int a = 0; a < 3; ++a) {
+      rq.o[a] = __shfl_sync(FULL_WARP, r.o[a], q);
+      rq.d[a] = __shfl_sync(FULL_WARP, r.d[a], q);
+      rq.m[a] = __shfl_sync(FULL_WARP, r.m[a], q);
+    }
+    rq.tmin = __shfl_sync(FULL_WARP, r.tmin, q);
+    const float cm = __shfl_sync(FULL_WARP, curmax, q);
+    float lt = BIG;
+    int lj = 0;
+    for (int j = 0; j < 4; ++j) {
+      const float tt = tri_t(op[j], rq, cm);
+      if (tt < lt) {
+        lt = tt;
+        lj = j;
+      }
+    }
+    // the least t in one warp reduction: as ints, floats that are not
+    // NaN (lt never is) order as their bit patterns do once a negative
+    // one's magnitude bits are flipped; +0 and -0 share key 0, equal as
+    // shade_leaf's compare holds them
+    const int bits = __float_as_int(lt);
+    const int key = lt == 0.0f ? 0 : (bits >= 0 ? bits : bits ^ 0x7fffffff);
+    const int least = __reduce_min_sync(FULL_WARP, key);
+    const int src = __ffs(__ballot_sync(FULL_WARP, key == least)) - 1;
+    const float t = __shfl_sync(FULL_WARP, lt, src);
+    const int k = 4 * src + __shfl_sync(FULL_WARP, lj, src);
+    if (l == q) {
+      my_t = t;
+      my_lane = k;
+    }
+  }
+  *lane = my_lane;
+  return my_t;
+}
+
+#endif  // __CUDACC__
 
 HD float slab_near(float a) { return isnan(a) ? -INFINITY : a; }
 HD float slab_far(float a) { return isnan(a) ? INFINITY : a; }

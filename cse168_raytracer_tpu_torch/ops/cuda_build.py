@@ -31,7 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # every kernel source of the port
 SOURCES = ("traverse_wide.cu", "traverse_binary.cu", "tri_blocks.cu")
 
-# what the builds of this process did: {source: {"seconds", "log", "path"}}
+# the plain builds (no `defines`) this process used: {source: {"seconds",
+# "log", "path"}}, "seconds" None where the library was already built;
+# "log" is nvcc's output (its -Xptxas -v report), kept beside the library
 BUILD_INFO: dict = {}
 
 
@@ -43,38 +45,49 @@ def find_nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
-def build_library(source: str) -> str:
-    """Compile csrc/<source> (if not already built) and return the path
-    of its shared library."""
+def build_library(source: str, defines: tuple = ()) -> str:
+    """Compile csrc/<source> (if not already built), with the macros
+    `defines` set, and return the path of its shared library."""
     src_path = os.path.join(CSRC, source)
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + tuple("-D" + m for m in defines)
+    digest = hashlib.sha256(" ".join(flags).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for name in [source] + headers:
         with open(os.path.join(CSRC, name), "rb") as f:
             digest.update(name.encode() + b"\0" + f.read())
     key = digest.hexdigest()[:16]
     out_dir = os.path.join(BUILD, key)
-    lib = os.path.join(out_dir, "lib" + os.path.splitext(source)[0] + ".so")
+    stem = "lib" + os.path.splitext(source)[0]
+    lib = os.path.join(out_dir, stem + ".so")
+    log_path = os.path.join(out_dir, stem + ".log")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not os.path.exists(lib):
-            t0 = time.perf_counter()
-            tmp = lib + ".tmp"
-            res = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                                  src_path], capture_output=True, text=True)
-            if res.returncode:
-                raise RuntimeError(f"nvcc failed on {source}:\n"
-                                   f"{res.stdout}\n{res.stderr}")
-            os.replace(tmp, lib)
+        if os.path.exists(lib) and os.path.exists(log_path):
+            if not defines:
+                with open(log_path) as f:
+                    BUILD_INFO.setdefault(source, {"seconds": None,
+                                                   "log": f.read(),
+                                                   "path": lib})
+            return lib
+        t0 = time.perf_counter()
+        tmp = lib + ".tmp"
+        res = subprocess.run([find_nvcc(), *flags, "-o", tmp, src_path],
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc failed on {source}:\n"
+                               f"{res.stdout}\n{res.stderr}")
+        with open(log_path, "w") as f:
+            f.write(res.stdout + res.stderr)
+        os.replace(tmp, lib)
+        if not defines:
             BUILD_INFO[source] = {"seconds": time.perf_counter() - t0,
-                                  "log": res.stdout + res.stderr,
-                                  "path": lib}
+                                  "log": res.stdout + res.stderr, "path": lib}
     return lib
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    return ctypes.CDLL(build_library(source))
+def load_library(source: str, defines: tuple = ()) -> ctypes.CDLL:
+    return ctypes.CDLL(build_library(source, defines))
 
 
 def build_all(sources=SOURCES) -> dict:

@@ -6,7 +6,9 @@ Counterpart of cse168_raytracer_tpu/ops/pallas_bvh.py:162-208 and
 copied, so the tree arrays are byte-equal to the Pallas kernel's.
 
 Traversal (`closest_hit_triangles`, `any_hit_triangles`) runs the
-hand-written CUDA kernel csrc/traverse_wide.cu on CUDA tensors; it
+hand-written CUDA kernel csrc/traverse_wide.cu on CUDA tensors, the
+card walk: each thread walks its ray, the warp tests the leaves its
+lanes reach together, and the stacks live in shared memory. It
 replaces the Pallas kernel `_traverse4_one` in its closest-hit-with-
 attributes and any-hit modes, for both the W=4 tree and the W=8 tree of
 scenes above 300k triangles, and in its with_stats mode (kernel K3:
@@ -16,10 +18,13 @@ pallas_bvh.py:569-574 scales them). On CPU tensors the same entry
 points run the kernel's plain version, `walk_plain`: the kernel's own
 walk vectorized over rays, with its counts dropped when they are not
 asked for. For a CUDA tensor a wrapper launches the kernel or raises;
-it never falls back to the plain version. `brute_force_triangles`, a
-chunked brute force over the leaf table with the same acceptance rule,
-first-lane ties and attribute gather, is an oracle independent of the
-walk, for tests and chip_smoke.py; no entry point runs it.
+it never falls back to the plain version. `_launch_per_ray` runs the
+design the card walk replaced (one thread per ray, its stack in device
+memory), for chip_smoke.py to time beside it; nothing else reaches it.
+`brute_force_triangles`, a chunked brute force over the leaf table with
+the same acceptance rule, first-lane ties and attribute gather, is an
+oracle independent of the walk, for tests and chip_smoke.py; no entry
+point runs it.
 
 The counters differ from the TPU kernel's on purpose:
 1. they are per ray: the TPU kernel counts the visits of a 256-ray tile
@@ -471,19 +476,44 @@ def any_hit_triangles_plain(bvh: WideBVH, o, d, tmin, tmax,
 _lib = None
 
 
+def _stack_smem_bytes(lib, stack_depth: int) -> int:
+    """Bytes of shared memory a block of the card walk takes for its
+    threads' stacks of stack_depth int32 slots, with the block size and
+    the limit that traverse_wide.cu (`lib`, its card or host build)
+    exports. Raises ValueError where that is more than a block may use,
+    or the tree has no stack."""
+    threads = lib.traverse_wide_threads()
+    max_smem = lib.traverse_wide_max_smem()
+    nbytes = int(stack_depth) * threads * 4
+    if stack_depth < 1 or nbytes > max_smem:
+        raise ValueError(f"traverse_wide: a stack of {stack_depth} slots "
+                         f"takes {nbytes} bytes of shared memory per block; "
+                         f"a block may use 1 to {max_smem // threads // 4}"
+                         " slots")
+    return nbytes
+
+
+def _bind(lib):
+    """Declare the C interface of a build of traverse_wide.cu."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    rays = [i, p, p, p, p, i, p, p, p]  # width, o, d, tmin, tmax, n, tree
+    closest = rays + [p, i, i]          # attrA, n_nodes, n_leaves
+    any_hit = rays + [i, i]
+    for name, args, outs in (("traverse_closest_attr", closest, [p] * 5),
+                             ("traverse_any", any_hit, [p] * 3)):
+        for fn, stack in ((getattr(lib, name), []),
+                          (getattr(lib, name + "_per_ray"), [p])):
+            fn.argtypes = args + stack + [i] + outs + [p, p]
+            fn.restype = i
+    lib.traverse_wide_threads.restype = i
+    lib.traverse_wide_max_smem.restype = i
+    return lib
+
+
 def _kernel_lib():
     global _lib
     if _lib is None:
-        lib = cuda_build.load_library("traverse_wide.cu")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.traverse_closest_attr.argtypes = [i, p, p, p, p, i, p, p, p, p,
-                                              i, i, p, i, p, p, p, p, p, p,
-                                              p]
-        lib.traverse_closest_attr.restype = i
-        lib.traverse_any.argtypes = [i, p, p, p, p, i, p, p, p, i, i, p, i,
-                                     p, p, p, p, p]
-        lib.traverse_any.restype = i
-        _lib = lib
+        _lib = _bind(cuda_build.load_library("traverse_wide.cu"))
     return _lib
 
 
@@ -519,14 +549,19 @@ def _check_inputs(bvh: WideBVH, o, d, tmin, tmax):
             or bvh.leafW.shape != (bvh.n_leaves, 16, 4 * K) \
             or bvh.attrA.shape != (bvh.n_leaves, 16, 2 * K):
         raise ValueError("WideBVH arrays do not match its width and counts")
-    if bvh.stack_depth * n >= 2 ** 62:
-        raise ValueError("too many rays for one launch")
+    if bvh.leafW.data_ptr() % 16:
+        raise ValueError("leafW: the card walk reads it 16 bytes at a time; "
+                         "need a 16-byte-aligned tensor")
 
 
-def _launch(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
-            with_stats: bool = False):
-    """One launch; returns (t, id, attr, internal visits, leaf visits),
-    the entries a mode does not produce being None."""
+def _call(fn, stack, bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
+          with_stats: bool):
+    """Call `fn`, an entry point of traverse_wide.cu (traverse_any when
+    any_hit, else traverse_closest_attr; or either's _per_ray twin, which
+    takes the pointers `stack` before stack_depth). Returns the outputs
+    (t, id, attr, internal visits, leaf visits), the entries a mode does
+    not produce being None, and the (1,) error bits that the launch
+    sets, None where there were no rays and nothing was launched."""
     o = o.detach().contiguous()
     d = d.detach().contiguous()
     _check_inputs(bvh, o, d, tmin, tmax)
@@ -539,37 +574,70 @@ def _launch(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
     if n == 0:
         return (out_t, torch.empty((0,), **i32),
                 torch.empty((0, 32), dtype=torch.float32, device=o.device),
-                out_nv, out_lv)
-    lib = _kernel_lib()
-    stack = torch.empty((bvh.stack_depth * n,), dtype=torch.int32,
-                        device=o.device)
+                out_nv, out_lv), None
     err = torch.zeros((1,), dtype=torch.int32, device=o.device)
     stream = torch.cuda.current_stream(o.device).cuda_stream
     ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
     common = [bvh.width, ptr(o), ptr(d), ptr(tmin), ptr(tmax), n,
               ptr(bvh.cbox), ptr(bvh.links), ptr(bvh.leafW)]
     if any_hit:
-        rc = lib.traverse_any(*common, bvh.n_nodes, bvh.n_leaves,
-                              ptr(stack), bvh.stack_depth, ptr(out_t),
-                              ptr(out_nv), ptr(out_lv), ptr(err),
-                              ctypes.c_void_p(stream))
-        mode = "any"
+        rc = fn(*common, bvh.n_nodes, bvh.n_leaves, *stack, bvh.stack_depth,
+                ptr(out_t), ptr(out_nv), ptr(out_lv), ptr(err),
+                ctypes.c_void_p(stream))
     else:
         out_id = torch.empty((n,), **i32)
         out_attr = torch.empty((n, 32), dtype=torch.float32, device=o.device)
-        rc = lib.traverse_closest_attr(
-            *common, ptr(bvh.attrA), bvh.n_nodes, bvh.n_leaves, ptr(stack),
-            bvh.stack_depth, ptr(out_t), ptr(out_id), ptr(out_attr),
-            ptr(out_nv), ptr(out_lv), ptr(err), ctypes.c_void_p(stream))
-        mode = "closest"
+        rc = fn(*common, ptr(bvh.attrA), bvh.n_nodes, bvh.n_leaves, *stack,
+                bvh.stack_depth, ptr(out_t), ptr(out_id), ptr(out_attr),
+                ptr(out_nv), ptr(out_lv), ptr(err), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"traverse_wide launch failed: CUDA error {rc}")
-    LAUNCHES["stats_" + mode if with_stats else mode] += 1
+    return (out_t, out_id, out_attr, out_nv, out_lv), err
+
+
+def _raise_on(err):
+    """The per-launch check: a stack overflow or a bad link raises."""
     bits = int(err.item())
     if bits:
         raise RuntimeError(f"traverse_wide: {'stack overflow ' if bits & 1 else ''}"
                            f"{'bad link' if bits & 2 else ''} (error bits {bits})")
-    return out_t, out_id, out_attr, out_nv, out_lv
+
+
+def _launch(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
+            with_stats: bool = False):
+    """One launch of the card walk; returns (t, id, attr, internal visits,
+    leaf visits), the entries a mode does not produce being None."""
+    lib = _kernel_lib()
+    _stack_smem_bytes(lib, bvh.stack_depth)
+    fn = lib.traverse_any if any_hit else lib.traverse_closest_attr
+    out, err = _call(fn, [], bvh, o, d, tmin, tmax, any_hit, with_stats)
+    if err is not None:
+        mode = "any" if any_hit else "closest"
+        LAUNCHES["stats_" + mode if with_stats else mode] += 1
+        _raise_on(err)
+    return out
+
+
+def _launch_per_ray(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
+                    with_stats: bool = False):
+    """_launch by the per-ray kernel (one thread walks one ray, its stack
+    in (stack_depth, n) device scratch): the design the card walk
+    replaced, kept as its yardstick so that chip_smoke.py can time both
+    on one card. Nothing in the package calls it, and it counts no
+    launch."""
+    tmin, tmax = _bounds(o, tmin, tmax)
+    if bvh.stack_depth * o.shape[0] >= 2 ** 62:
+        raise ValueError("too many rays for one launch")
+    lib = _kernel_lib()
+    fn = (lib.traverse_any_per_ray if any_hit
+          else lib.traverse_closest_attr_per_ray)
+    scratch = torch.empty((bvh.stack_depth * o.shape[0],), dtype=torch.int32,
+                          device=o.device)
+    out, err = _call(fn, [ctypes.c_void_p(scratch.data_ptr())], bvh, o, d,
+                     tmin, tmax, any_hit, with_stats)
+    if err is not None:
+        _raise_on(err)
+    return out
 
 
 def _route(o):

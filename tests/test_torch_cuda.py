@@ -1,7 +1,7 @@
-"""The port's CUDA kernels on the card: the wide-tree traversal with and
-without its in-kernel counters (K1-K4), the binary-tree traversal in its
-three modes (K5) and the block brute force (K6), each against its plain
-PyTorch version.
+"""The port's CUDA kernels on the card: the wide-tree traversal (the card
+walk, and the per-ray kernel it replaced) with and without its in-kernel
+counters (K1-K4), the binary-tree traversal in its three modes (K5) and
+the block brute force (K6), each against its plain PyTorch version.
 
 These tests need an NVIDIA GPU and the CUDA toolkit; without a GPU they
 skip. They import neither jax nor the JAX package, so they run on a
@@ -56,6 +56,58 @@ def rays(seed, n, device):
     tmax[4:8] = -1.0
     t = lambda x: torch.as_tensor(np.float32(x), device=device)
     return t(o), t(d), t(np.zeros(n)), t(tmax)
+
+
+def tie_mesh(n_base, seed):
+    """n_base triangles on a 1/16 grid, each twice as it is and twice
+    scaled by 2 about its first vertex: every hit ties, on two lanes of
+    one leaf (the copies' operands are equal) and at times across leaves
+    (the scaled triangle's t is equal too, its operands scaled by powers
+    of two, and its centroid moved)."""
+    rng = np.random.default_rng(seed)
+    v0 = rng.integers(-32, 33, (n_base, 3)) / 16
+    e1 = rng.integers(-4, 5, (n_base, 3)) / 16
+    e2 = rng.integers(-4, 5, (n_base, 3)) / 16
+    tri = np.stack([v0, v0 + e1, v0 + e2], 1)
+    big = np.stack([v0, v0 + 2 * e1, v0 + 2 * e2], 1)
+    v = np.concatenate([tri, big, tri, big]).reshape(-1, 3)
+    f = np.arange(v.shape[0], dtype=np.int64).reshape(-1, 3)
+    return {"vertices": v.astype(np.float32),
+            "normals": np.tile(np.float32([[0, 0, 1]]), (v.shape[0], 1)),
+            "texcoords": np.zeros((0, 2), np.float32), "tri_vidx": f,
+            "tri_nidx": f, "tri_tidx": np.full_like(f, -1)}
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("width", [4, 8])
+@pytest.mark.parametrize("case", ["ragged", "ties"])
+def test_card_walk_equals_walk_plain(cuda, case, width, any_hit):
+    """The card walk and the per-ray kernel it replaced, each with and
+    without counters, against walk_plain exactly (t, id, attributes and
+    visit counts): on 4097 rays, the last warp holding one, with dead
+    rays inside every warp; and on a mesh whose every hit is a tie,
+    where the id must be walk_plain's (the first lane, the first leaf
+    visited)."""
+    mesh, n = ((clustered_mesh(3000, 23), 4097) if case == "ragged"
+               else (tie_mesh(1000, 24), 4096))
+    pack = pack_triangles([(mesh, 0)], device=cuda)
+    bvh = wide_bvh.build_bvh4_sah(pack, width=width)[1]
+    o, d, tmin, tmax = rays(66, n, cuda)
+    tmax[3::7] = -1.0
+    tp, idp, n_int, n_leaf = wide_bvh.walk_plain(bvh, o, d, tmin, tmax,
+                                                 any_hit=any_hit)
+    attrp = wide_bvh._gather_attr(bvh, tp, idp.long())
+    assert 0 < int((tp < BIG).sum()) < n and int(n_leaf.sum()) > 0
+    for launch in (wide_bvh._launch, wide_bvh._launch_per_ray):
+        for stats in (False, True):
+            t, ids, attr, nv, lv = launch(bvh, o, d, tmin, tmax, any_hit,
+                                          stats)
+            torch.cuda.synchronize()
+            assert torch.equal(t, tp)
+            if not any_hit:
+                assert torch.equal(ids, idp) and torch.equal(attr, attrp)
+            if stats:
+                assert torch.equal(nv, n_int) and torch.equal(lv, n_leaf)
 
 
 @pytest.mark.parametrize("width", [4, 8])
@@ -128,6 +180,45 @@ def test_kernel_reports_stack_overflow(cuda):
     o, d, tmin, tmax = rays(61, 256, cuda)
     with pytest.raises(RuntimeError, match="stack overflow"):
         wide_bvh.closest_hit_triangles(shallow, o, d, tmin, tmax)
+
+
+def test_kernel_reports_bad_link(cuda):
+    pack = pack_triangles([(clustered_mesh(3000, 17), 0)], device=cuda)
+    bvh = wide_bvh.build_bvh4_sah(pack, width=4)[1]
+    bad = dataclasses.replace(bvh, links=torch.where(
+        bvh.links < 0, bvh.links - 10 ** 6, bvh.links))
+    o, d, tmin, tmax = rays(61, 256, cuda)
+    with pytest.raises(RuntimeError, match="bad link"):
+        wide_bvh.closest_hit_triangles(bad, o, d, tmin, tmax)
+
+
+def test_card_walk_refuses_a_stack_over_shared_memory(cuda):
+    """A stack of more slots than a block's shared memory holds raises
+    before the launch."""
+    pack = pack_triangles([(clustered_mesh(3000, 17), 0)], device=cuda)
+    bvh = wide_bvh.build_bvh4_sah(pack, width=4)[1]
+    deep = dataclasses.replace(bvh, stack_depth=455)
+    o, d, tmin, tmax = rays(61, 256, cuda)
+    before = dict(wide_bvh.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        wide_bvh.closest_hit_triangles(deep, o, d, tmin, tmax)
+    assert wide_bvh.LAUNCHES == before
+
+
+@pytest.mark.parametrize("depth", [97, 454])
+def test_card_walk_with_stacks_over_48_kb(cuda, depth):
+    """Stacks of more than 48 KB a block (the kernel is let take up to
+    227 KB) give walk_plain's answers, on two launches each."""
+    pack = pack_triangles([(clustered_mesh(3000, 17), 0)], device=cuda)
+    bvh = wide_bvh.build_bvh4_sah(pack, width=4)[1]
+    deep = dataclasses.replace(bvh, stack_depth=depth)
+    lib = wide_bvh._kernel_lib()
+    assert wide_bvh._stack_smem_bytes(lib, depth) > 48 * 1024
+    o, d, tmin, tmax = rays(61, 1000, cuda)
+    tp, idp, _, _ = wide_bvh.walk_plain(bvh, o, d, tmin, tmax)
+    for _ in range(2):
+        t, ids, _ = wide_bvh.closest_hit_triangles(deep, o, d, tmin, tmax)
+        assert torch.equal(t, tp) and torch.equal(ids, idp)
 
 
 @pytest.mark.parametrize("any_hit", [False, True])

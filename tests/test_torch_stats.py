@@ -28,7 +28,8 @@ from cse168_raytracer_tpu_torch.ops import wide_bvh as twb  # noqa: E402
 from cse168_raytracer_tpu_torch.ops.stats import \
     traversal_stats  # noqa: E402
 from test_torch_traverse import (BIG, MESHES, build_both,  # noqa: E402,F401
-                                 check_against_brute, host_walk, rays)
+                                 check_against_brute, host_lib, host_walk,
+                                 rays)
 
 # Bars against the Pallas kernel, set from the differences above. A ray
 # that walks to the end (every closest-hit ray, and an any-hit ray that
