@@ -5,7 +5,9 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, one
 nvcc each, all started together, and prints each kernel's registers,
-shared memory and spills (phase 2); holds the wide-tree kernel (the
+shared memory and spills, failing if a card walk's instantiation (K1-K5)
+or one of K6's kernels is missing from nvcc's report or spills (phase
+2); holds the wide-tree kernel (the
 card walk) against a brute-force oracle on the card, with a ray count
 that is not a multiple of 32, dead rays inside warps and a mesh of tied
 triangles among the cases (phase 3); drives the
@@ -26,9 +28,10 @@ the A/B accelerator kinds on lit sponza_proxy (phase 9): (a) the fwd+bwd
 step with "pallas_sah" (the binary tree, kernel K5) and "pallas" (the
 Morton-block brute force, K6) against the "auto" step, (b) K5 in its
 three modes and K6 against their plain versions on the main path's
-primary and shadow rays, timed with their bounds, and against the brute
-force, (c) a collect_stats render through K5 and traversal_stats, (d) a
-forward render with each of "block", "bvh", "packet" and
+primary and shadow rays (K6's passing (tile, block) pairs too), timed
+with their bounds, against the brute force, and on phase 3's ragged,
+dead-ray and tie cases, (c) a collect_stats render through K5 and
+traversal_stats, (d) a forward render with each of "block", "bvh", "packet" and
 "pallas_forest" against auto's, and (e) the W=8 kernel (K4) on the
 400k-triangle proxy, timed with its bound and beside the per-ray kernel.
 Each phase prints its own lines; any failure raises and exits non-zero.
@@ -427,19 +430,22 @@ def phase_build():
             log(f"   ptxas: {name}: {k['registers']} registers, "
                 f"{k['smem']} bytes static shared memory, spill stores "
                 f"{k['spill_stores']} bytes, loads {k['spill_loads']} bytes")
-    # the card walk's eight instantiations, each reported and spilling
-    # nothing: spills would put its leaf operands in local memory
-    for w in (4, 8):
-        for mode in ("closest", "any"):
-            for stats in ("", " stats"):
-                name = f"traverse_warp W={w} {mode}{stats}"
-                k = ptxas.get(name)
-                if k is None:
-                    raise RuntimeError(f"phase 2: nvcc's report has no {name}")
-                if k["spill_stores"] or k["spill_loads"]:
-                    raise RuntimeError(f"phase 2: {name} spills "
-                                       f"{k['spill_stores']} bytes of stores "
-                                       f"and {k['spill_loads']} of loads")
+    # the card walks' twelve instantiations (K1-K4's eight, K5's four)
+    # and K6's three kernels, each reported and spilling nothing: spills
+    # would put their operands in local memory
+    names = [f"traverse_warp W={w} {mode}{stats}" for w in (4, 8)
+             for mode in ("closest", "any") for stats in ("", " stats")]
+    names += [f"traverse_binary_warp {mode}{stats}"
+              for mode in ("closest", "any") for stats in ("", " stats")]
+    for name in names + ["tri_blocks_cull", "tri_blocks_test",
+                         "tri_blocks_finish"]:
+        k = ptxas.get(name)
+        if k is None:
+            raise RuntimeError(f"phase 2: nvcc's report has no {name}")
+        if k["spill_stores"] or k["spill_loads"]:
+            raise RuntimeError(f"phase 2: {name} spills "
+                               f"{k['spill_stores']} bytes of stores "
+                               f"and {k['spill_loads']} of loads")
     sah.load_native()
     log(f"[2 build] native SAH builder {sah.native_library_path()} loaded")
     return build_s, ptxas
@@ -447,8 +453,9 @@ def phase_build():
 
 def ptxas_kernels(text):
     """{kernel: {"registers", "smem", "spill_stores", "spill_loads"}}
-    from nvcc's -Xptxas -v report; traverse_wide.cu's kernels named as
-    "traverse_warp W=4 closest" or "traverse_per_ray W=8 any stats"."""
+    from nvcc's -Xptxas -v report; the kernels named as "traverse_warp
+    W=4 closest", "traverse_per_ray W=8 any stats", "traverse_binary_warp
+    any stats" or "tri_blocks_test"."""
     import re
     out, cur = {}, None
     for line in text.splitlines():
@@ -458,10 +465,17 @@ def ptxas_kernels(text):
             cur = m.group(1)
             t = re.search(r"(traverse_warp|traverse_per_ray)ILi(\d)ELb"
                           r"([01])ELb([01])E", cur)
+            b = re.search(r"traverse_binary_warpILb([01])ELb([01])E", cur)
             if t:
                 cur = (f"{t.group(1)} W={t.group(2)} "
                        f"{'any' if t.group(3) == '1' else 'closest'}"
                        + (" stats" if t.group(4) == "1" else ""))
+            elif b:
+                cur = (f"traverse_binary_warp "
+                       f"{'any' if b.group(1) == '1' else 'closest'}"
+                       + (" stats" if b.group(2) == "1" else ""))
+            elif re.search(r"tri_blocks_(cull|test|finish)", cur):
+                cur = re.search(r"tri_blocks_(cull|test|finish)", cur).group(0)
             out.setdefault(cur, {"registers": 0, "smem": 0,
                                  "spill_stores": 0, "spill_loads": 0})
             continue
@@ -1127,7 +1141,7 @@ def phase_kind_kernels(device, steps, cam, sponza_rays):
     so, sd, stmax = shadow_rays(auto, o, d)
     rays = {"primary": (o, d, 0.0, 1e12), "lit shadow": (so, sd, 0.0, stmax)}
     log(f"[9b K5] binary SAH tree: {bvh.n_nodes} internal nodes, "
-        f"{bvh.n_leaves} leaves, stack depth {bvh.stack_depth}")
+        f"{bvh.n_leaves} leaves; {binary_stack_line(bvh)}")
     errs = {"closest": 0.0, "any": 0.0, "stats": 0.0}
     visits, subset = {}, {}
     for key, args in rays.items():
@@ -1187,18 +1201,9 @@ def phase_kind_kernels(device, steps, cam, sponza_rays):
                        lambda *a: tb.closest_hit_plain(blocks.accel, *a),
                        args, n)
         t, ids = tb.closest_hit(blocks.accel, *args)
-        tp, idp, pairs = tb.closest_hit_plain(blocks.accel, *head(args, m),
-                                              count_pairs=True)
+        pairs = compare_k6(f"K6 {key} rays", blocks.accel, head(args, m),
+                           (t[:m], ids[:m]))
         torch.cuda.synchronize()
-        if not (torch.equal(t[:m], tp) and torch.equal(ids[:m], idp)):
-            raise AssertionError(f"K6 {key}: kernel and plain version differ "
-                                 f"on {int((t[:m] != tp).sum())} t and "
-                                 f"{int((ids[:m] != idp).sum())} ids")
-        hit = tp < 3e37
-        log(f"  K6 {key} rays: {m} rays, hits {int(hit.sum())}; kernel = "
-            f"plain version in t and id; {pairs} (tile, block) pairs of "
-            f"{-(-m // tb.RAY_TILE) * blocks.accel.num_blocks} passed the "
-            "cull")
         if key != "primary":
             continue
         ms = time_cuda(lambda: tb.closest_hit(blocks.accel, *args), 10)
@@ -1223,9 +1228,105 @@ def phase_kind_kernels(device, steps, cam, sponza_rays):
         compare_brute(key, "pallas_sah", sah, auto, args, t, ids, occ)
         t, ids = tb.closest_hit(blocks.accel, *args)
         compare_brute(key, "pallas", blocks, auto, args, t, ids)
+    kind_cases(device, sah, blocks, sponza_rays, errs)
     bb.LAUNCHES.update(saved[0])
     tb.LAUNCHES.update(saved[1])
     return out
+
+
+def binary_stack_line(bvh):
+    """K5's stack line: stack_depth two-word slots a thread in shared
+    memory, checked against the tree's depth."""
+    from cse168_raytracer_tpu_torch.ops import binary_bvh as bb
+    lib = bb._kernel_lib()
+    nbytes = bb._stack_smem_bytes(lib, bvh.stack_depth)
+    if nbytes != bvh.stack_depth * 8 * lib.traverse_binary_threads():
+        raise AssertionError("K5's stack is not the tree's depth")
+    return (f"the card walk's stacks: {bvh.stack_depth} slots of a link "
+            f"and an entry t a thread, {nbytes} bytes of dynamic shared "
+            "memory a block")
+
+
+def compare_k6(label, blocks, args, got=None):
+    """K6 (or its outputs `got`) against closest_hit_plain on the same
+    rays: t, id and the (tile, block) pairs that passed the cull, which
+    the kernel counts in a launch of its own. Returns the pairs."""
+    import torch
+    from cse168_raytracer_tpu_torch.ops import tri_blocks as tb
+    from cse168_raytracer_tpu_torch.ops.wide_bvh import _bounds
+    t, ids = tb.closest_hit(blocks, *args) if got is None else got
+    tp, idp, pairs = tb.closest_hit_plain(blocks, *args, count_pairs=True)
+    k_pairs = int(tb._launch(blocks, *args[:2], *_bounds(args[0], *args[2:]),
+                             count_pairs=True)[2].sum())
+    if not (torch.equal(t, tp) and torch.equal(ids, idp)):
+        raise AssertionError(f"{label}: kernel and plain version differ "
+                             f"on {int((t != tp).sum())} t and "
+                             f"{int((ids != idp).sum())} ids")
+    if k_pairs != pairs:
+        raise AssertionError(f"{label}: the kernel's tiles passed {k_pairs} "
+                             f"(tile, block) pairs, the plain version's "
+                             f"{pairs}")
+    n = args[0].shape[0]
+    log(f"  {label}: {n} rays, hits {int((tp < 3e37).sum())}; kernel = "
+        f"plain version in t, id and the {pairs} (tile, block) pairs of "
+        f"{-(-n // tb.RAY_TILE) * blocks.num_blocks} that passed the cull")
+    return pairs
+
+
+def kind_cases(device, sah, blocks, sponza_rays, errs):
+    """Phase 9(b)'s edge cases for K5 (three modes) and K6, each against
+    its plain version exactly: phase 3's ragged count (the last warp 31
+    rays, the last tile 255) and dead rays in every warp and tile, on
+    lit sponza_proxy; and a tie mesh (every hit ties, on lanes of one
+    leaf or block and across them), where K5's t must also equal the
+    brute force's and K6's on every hit both find."""
+    import torch
+    from cse168_raytracer_tpu_torch.models.geometry import pack_triangles
+    from cse168_raytracer_tpu_torch.models.scene import make_scene
+    from cse168_raytracer_tpu_torch.ops import binary_bvh as bb
+    from cse168_raytracer_tpu_torch.ops import tri_blocks as tb
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    log("[9b cases] K5 and K6 against their plain versions")
+    o, d = sponza_rays["primary"][:2]
+    m = N_SUBSET - 1
+    dead = torch.where(torch.arange(N_SUBSET, device=device) % 5 == 2,
+                       -1.0, 1e12)
+    cases = {f"ragged, {m} rays": (o[:m], d[:m], 0.0, 1e12),
+             "dead every 5th": (o, d, 0.0, dead)}
+    for key, args in cases.items():
+        compare_plain(f"K5 {key}", sah.accel, args, errs, wb=bb)
+        compare_k6(f"K6 {key}", blocks.accel, args)
+    rng = np.random.default_rng(SEED + 9)
+    tie, _ = make_scene(tris=pack_triangles([(tie_mesh(1000, rng), 0)],
+                                            block=256, device=device),
+                        device=device)
+    n_tie = N_SUBSET // 2
+    td = torch.as_tensor(rng.normal(0, 1, (n_tie, 3)).astype(np.float32),
+                         device=device)
+    td[:, 2] = td[:, 2].abs()
+    td = (td / td.norm(dim=1, keepdim=True)).contiguous()
+    to = torch.tensor([[0.0, 0.0, -5.0]], device=device).repeat(n_tie, 1)
+    args = (to, td, 0.0, 1e10)
+    k5, k6 = (attach_accel(tie, k).accel for k in ("pallas_sah", "pallas"))
+    compare_plain("K5 ties", k5, args, errs, wb=bb)
+    compare_k6("K6 ties", k6, args)
+    auto = attach_accel(tie, "auto").accel
+    tp = wb.brute_force_triangles(auto, *args)[0]
+    t5 = bb.closest_hit_triangles(k5, *args)[0]
+    t6 = tb.closest_hit(k6, *args)[0]
+    both = (t6 < 3e37) & (tp < 3e37)
+    in_leaf, across = tie_counts(auto, to, td, tp)
+    agree6 = float((t6 < 3e37).eq(tp < 3e37).float().mean())
+    log(f"  ties: {n_tie} rays, hits {int((tp < 3e37).sum())}; {in_leaf} "
+        f"tie in the brute force's winning leaf, {across} across leaves; "
+        f"K5's t = brute force's: {torch.equal(t5, tp)}; K6's hit masks "
+        f"agree on {agree6:.5f}, t equal on shared hits: "
+        f"{torch.equal(t6[both], tp[both])}")
+    if not (torch.equal(t5, tp) and torch.equal(t6[both], tp[both])
+            and agree6 >= 0.999 and in_leaf and across):
+        raise AssertionError("ties: K5 or K6 differ from the brute force, "
+                             "or the mesh makes no ties")
 
 
 def phase_kind_stats(sah, static, cam, cfg, device, k5):
@@ -1402,9 +1503,9 @@ def main():
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "rays", "plain_rays")
     wkeys = keys + ("per_ray_ms",)
 
-    def regs(*names):
-        """Registers and spilled bytes of the card walk's kernels."""
-        ks = [ptxas["traverse_warp " + x] for x in names]
+    def regs(*names, prefix="traverse_warp "):
+        """Registers and spilled bytes of the named kernels."""
+        ks = [ptxas[prefix + x] for x in names]
         return {"registers": [k["registers"] for k in ks],
                 "spill_bytes": [k["spill_stores"] + k["spill_loads"]
                                 for k in ks]}
@@ -1440,26 +1541,32 @@ def main():
          "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:276",
          "launches": sah_launches["closest"],
          "max_abs_err": k5["errs"]["closest"], "library_ms": None,
-         **{k: k5["closest"][k] for k in keys}},
+         **{k: k5["closest"][k] for k in keys},
+         **regs("closest", prefix="traverse_binary_warp ")},
         {"name": "traverse_binary any-hit (K5)", "route": "cuda",
          "source": src5,
          "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:276",
          "launches": sah_launches["any"],
          "max_abs_err": k5["errs"]["any"], "library_ms": None,
-         **{k: k5["any"][k] for k in keys}},
+         **{k: k5["any"][k] for k in keys},
+         **regs("any", prefix="traverse_binary_warp ")},
         {"name": "traverse_binary with counters, closest and any-hit (K5)",
          "route": "cuda", "source": src5,
          "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:254",
          "launches": (k5_stats_launches["stats_closest"]
                       + k5_stats_launches["stats_any"]),
          "max_abs_err": k5["errs"]["stats"], "library_ms": None,
-         **{k: k5["stats"][k] for k in keys}},
+         **{k: k5["stats"][k] for k in keys},
+         **regs("closest stats", "any stats",
+                prefix="traverse_binary_warp ")},
         {"name": "tri_blocks closest (K6)", "route": "cuda",
          "source": "cse168_raytracer_tpu_torch/csrc/tri_blocks.cu",
          "replaces": "cse168_raytracer_tpu/ops/pallas_intersect.py:105",
          "launches": steps["pallas step"]["launches"]["closest"],
          "max_abs_err": k5["k6"]["err"], "library_ms": None,
-         **{k: k5["k6"][k] for k in keys}},
+         **{k: k5["k6"][k] for k in keys},
+         **regs("tri_blocks_cull", "tri_blocks_test", "tri_blocks_finish",
+                prefix="")},
     ]
     a, b = (cli_runs[("sponza_proxy", x)] for x in ("a", "b"))
     log(f"[summary] main path "

@@ -180,6 +180,12 @@ def parser() -> argparse.ArgumentParser:
                    help="use the wide SAH BVH (default on)")
     r.add_argument("--no-accel", dest="accel", action="store_false")
     r.add_argument("--stats", action="store_true", help="-DSTATS counters")
+    r.add_argument("--bench", action="store_true",
+                   help="time a second steady-state render; the port "
+                        "always does, so this changes nothing")
+    r.add_argument("--no-photon-map", action="store_true",
+                   help="render without a photon map; without --photons "
+                        "there is none, so this changes nothing")
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--tonemap", choices=("sigmoid", "normalized", "none"),
                    default="sigmoid",

@@ -17,13 +17,17 @@ CPU tensors the same entry points run `walk_binary_plain`, the kernel's
 walk vectorized over rays. For a CUDA tensor a wrapper launches the
 kernel or raises; it never falls back to the plain version.
 
-The walk is the Pallas kernel's ordered descent for one ray (one thread
-per ray, where the TPU walks a 256-ray tile): stack entries carry the
-child's entry t and are dropped when popped past the ray's best, the far
-child is pushed first, and boxes are widened by BOX_PAD as in
-ops/wide_bvh.py. Counts are each ray's own walk: box tests = 2 x
-internal visits, triangle tests = K x leaf visits (pallas_bvh.py:570-574).
-Inputs are detached: hits are discrete selections.
+The walk is the Pallas kernel's ordered descent for one ray (each
+thread walks its own ray, where the TPU walks a 256-ray tile): stack
+entries carry the child's entry t and are dropped when popped past the
+ray's best, the far child is pushed first, and boxes are widened by
+BOX_PAD as in ops/wide_bvh.py. The kernel is the card walk of
+ops/wide_bvh.py for the binary tree: the warp tests the leaves its lanes
+reach together, and each thread's stack of (link, entry t) slots lives in
+shared memory (`_stack_smem_bytes`). Counts are each ray's own walk: box
+tests = 2 x internal visits, triangle tests = K x leaf visits
+(pallas_bvh.py:570-574). Inputs are detached: hits are discrete
+selections.
 """
 
 from __future__ import annotations
@@ -221,16 +225,39 @@ def any_hit_triangles_plain(bvh: BinaryBVH, o, d, tmin, tmax,
 _lib = None
 
 
+def _bind(lib):
+    """Declare the C interface of a build of traverse_binary.cu."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.traverse_binary.argtypes = [i, p, p, p, p, i, p, p, i, i, i, p, p,
+                                    p, p, p, p]
+    lib.traverse_binary.restype = i
+    lib.traverse_binary_threads.restype = i
+    lib.traverse_binary_max_smem.restype = i
+    return lib
+
+
 def _kernel_lib():
     global _lib
     if _lib is None:
-        lib = cuda_build.load_library("traverse_binary.cu")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.traverse_binary.argtypes = [i, p, p, p, p, i, p, p, i, i, p, p,
-                                        i, p, p, p, p, p, p]
-        lib.traverse_binary.restype = i
-        _lib = lib
+        _lib = _bind(cuda_build.load_library("traverse_binary.cu"))
     return _lib
+
+
+def _stack_smem_bytes(lib, stack_depth: int) -> int:
+    """Bytes of shared memory a block of the card walk takes for its
+    threads' stacks of stack_depth two-word slots (a link and an entry
+    t), with the block size and the limit that traverse_binary.cu (`lib`,
+    its card or host build) exports. Raises ValueError where that is more
+    than a block may use, or the tree has no stack."""
+    threads = lib.traverse_binary_threads()
+    max_smem = lib.traverse_binary_max_smem()
+    nbytes = int(stack_depth) * threads * 8
+    if stack_depth < 1 or nbytes > max_smem:
+        raise ValueError(f"traverse_binary: a stack of {stack_depth} slots "
+                         f"takes {nbytes} bytes of shared memory per block; "
+                         f"a block may use 1 to {max_smem // threads // 8}"
+                         " slots")
+    return nbytes
 
 
 def _check_inputs(bvh: BinaryBVH, o, d, tmin, tmax):
@@ -239,8 +266,10 @@ def _check_inputs(bvh: BinaryBVH, o, d, tmin, tmax):
     if bvh.cbox.shape != (bvh.n_nodes, 16) \
             or bvh.leafW.shape != (bvh.n_leaves, 16, 4 * K):
         raise ValueError("BinaryBVH arrays do not match its counts")
-    if bvh.stack_depth * o.shape[0] >= 2 ** 62:
-        raise ValueError("too many rays for one launch")
+    for name, x in (("cbox", bvh.cbox), ("leafW", bvh.leafW)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: the card walk reads it 16 bytes at a "
+                             "time; need a 16-byte-aligned tensor")
 
 
 def _launch(bvh: BinaryBVH, o, d, tmin, tmax, any_hit: bool,
@@ -258,18 +287,15 @@ def _launch(bvh: BinaryBVH, o, d, tmin, tmax, any_hit: bool,
     if n == 0:
         return out_t, out_id, out_nv, out_lv
     lib = _kernel_lib()
-    stack_i = torch.empty((bvh.stack_depth * n,), **i32)
-    stack_t = torch.empty((bvh.stack_depth * n,), dtype=torch.float32,
-                          device=o.device)
+    _stack_smem_bytes(lib, bvh.stack_depth)
     err = torch.zeros((1,), **i32)
     stream = torch.cuda.current_stream(o.device).cuda_stream
     ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
     rc = lib.traverse_binary(
         int(any_hit), ptr(o), ptr(d), ptr(tmin), ptr(tmax), n,
         ptr(bvh.cbox), ptr(bvh.leafW), bvh.n_nodes, bvh.n_leaves,
-        ptr(stack_i), ptr(stack_t), bvh.stack_depth, ptr(out_t),
-        ptr(out_id), ptr(out_nv), ptr(out_lv), ptr(err),
-        ctypes.c_void_p(stream))
+        bvh.stack_depth, ptr(out_t), ptr(out_id), ptr(out_nv), ptr(out_lv),
+        ptr(err), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"traverse_binary launch failed: CUDA error {rc}")
     mode = "any" if any_hit else "closest"

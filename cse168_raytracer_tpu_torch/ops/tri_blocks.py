@@ -8,7 +8,9 @@ byte-equal: w6 (NB, 6, 3*256) [beta | gamma | den] operand columns, w4
 (NB, 4, 256) t-numerator columns, aabb (NB, 8) [lo hi pad2].
 
 `closest_hit` runs the hand-written CUDA kernel csrc/tri_blocks.cu on
-CUDA tensors; it replaces the Pallas kernel `_kernel` (:105, called from
+CUDA tensors (three launches: the tiles' cull, the tests of the passing
+blocks shared by four CTAs a tile, the decoding of each ray's best); it
+replaces the Pallas kernel `_kernel` (:105, called from
 `_pallas_hit_impl` behind the zero-cotangent custom VJP `_pallas_hit`).
 On CPU tensors it runs `closest_hit_plain`, the same algorithm in plain
 PyTorch. For a CUDA tensor the wrapper launches the kernel or raises; it
@@ -147,45 +149,67 @@ def closest_hit_plain(blocks: TriBlocks, o, d, tmin, tmax,
 _lib = None
 
 
+def _bind(lib):
+    """Declare the C interface of a build of tri_blocks.cu."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tri_blocks_closest.argtypes = [p, p, p, i, p, p, p, p, i, p, p, p,
+                                       p, p, p]
+    lib.tri_blocks_closest.restype = i
+    return lib
+
+
 def _kernel_lib():
     global _lib
     if _lib is None:
-        lib = cuda_build.load_library("tri_blocks.cu")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tri_blocks_closest.argtypes = [p, p, p, i, p, p, p, p, i, p, p, p]
-        lib.tri_blocks_closest.restype = i
-        _lib = lib
+        _lib = _bind(cuda_build.load_library("tri_blocks.cu"))
     return _lib
 
 
-def _launch(blocks: TriBlocks, o, d, tmin, tmax):
+def _launch(blocks: TriBlocks, o, d, tmin, tmax, count_pairs: bool = False):
+    """One launch of the kernel: (t, id), and with count_pairs each
+    256-ray tile's number of blocks that passed the cull, (tiles,)
+    int32."""
     o = o.detach().contiguous()
     d = d.detach().contiguous()
     dev, n, nb = o.device, o.shape[0], blocks.num_blocks
     f32 = torch.float32
-    check_launch(o, d, tmin, tmax, (("w6", blocks.w6, f32),
-                                    ("w4", blocks.w4, f32),
-                                    ("aabb", blocks.aabb, f32)))
+    tables = (("w6", blocks.w6, f32), ("w4", blocks.w4, f32),
+              ("aabb", blocks.aabb, f32))
+    check_launch(o, d, tmin, tmax, tables)
     if blocks.w6.shape != (nb, 6, 3 * BLOCK) \
             or blocks.w4.shape != (nb, 4, BLOCK) \
             or blocks.aabb.shape != (nb, 8):
         raise ValueError("TriBlocks arrays do not match their block count")
     if nb * BLOCK >= 2 ** 31:
         raise ValueError("too many triangles for one launch")
+    for name, x, _ in tables:
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads it 16 bytes at a "
+                             "time; need a 16-byte-aligned tensor")
     out_t = torch.empty((n,), dtype=torch.float32, device=dev)
     out_id = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
+        if count_pairs:
+            return out_t, out_id, torch.zeros((0,), dtype=torch.int32,
+                                              device=dev)
         return out_t, out_id
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    tiles = -(-n // RAY_TILE)
+    pairs = (torch.empty((tiles,), dtype=torch.int32, device=dev)
+             if count_pairs else None)
+    # scratch: each tile's bitmask of passing blocks, each ray's best key
+    masks = torch.empty((tiles * -(-nb // 32),), dtype=torch.int32,
+                        device=dev)
+    keys = torch.empty((n,), dtype=torch.int64, device=dev)
+    ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _kernel_lib().tri_blocks_closest(
         ptr(blocks.aabb), ptr(blocks.w6), ptr(blocks.w4), nb, ptr(o),
-        ptr(d), ptr(tmin), ptr(tmax), n, ptr(out_t), ptr(out_id),
-        ctypes.c_void_p(stream))
+        ptr(d), ptr(tmin), ptr(tmax), n, ptr(masks), ptr(keys), ptr(out_t),
+        ptr(out_id), ptr(pairs), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"tri_blocks launch failed: CUDA error {rc}")
     LAUNCHES["closest"] += 1
-    return out_t, out_id
+    return (out_t, out_id, pairs) if count_pairs else (out_t, out_id)
 
 
 def closest_hit(blocks: TriBlocks, o, d, tmin, tmax):

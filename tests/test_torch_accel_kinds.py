@@ -15,8 +15,12 @@ seed with numpy:
 5. a 32x32 Whitted render and its kd gradient with pallas_sah, pallas,
    block and bvh against the JAX package with the same kind.
 The CUDA kernels' own code, built with g++ for the host, is held against
-the plain versions exactly. The kernels run on the card in
-tests/test_torch_cuda.py and chip_smoke.py."""
+the plain versions exactly: the host walks (traverse_binary_host,
+tri_blocks_host), and the card kernels themselves through the CUDA
+emulation of tests/test_torch_traverse.py (K5's card walk and K6's
+tile kernel, against the plain versions and the interpreted Pallas
+kernels, ragged counts, dead rays and ties included). The kernels run on
+the card in tests/test_torch_cuda.py and chip_smoke.py."""
 
 import ctypes
 import functools
@@ -34,7 +38,9 @@ import test_torch_golden  # noqa: E402,F401  (shares the cores between workers)
 from test_torch_host import (PACK_FIELDS, assert_bytes_equal,  # noqa: E402
                              assert_pack_equal, ensure_native)
 from test_torch_stats import pallas_counts  # noqa: E402
-from test_torch_traverse import BIG, clustered_mesh, rays  # noqa: E402
+from test_torch_cuda import tie_mesh  # noqa: E402
+from test_torch_traverse import (BIG, clustered_mesh,  # noqa: E402
+                                 emulated_build, rays)
 
 from cse168_raytracer_tpu.config import RenderConfig as JCfg  # noqa: E402
 from cse168_raytracer_tpu.models import geometry as jgeo  # noqa: E402
@@ -579,3 +585,209 @@ def test_wrappers_route_cpu_tensors_to_plain():
         tbb.closest_hit_triangles(bvh, *meta)
     with pytest.raises(ValueError):
         ttb.closest_hit(blocks, *meta)
+
+
+# ---------------------------------------------------------------------------
+# the card kernels, their CUDA emulated on the host
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card_libs(tmp_path_factory):
+    """The card builds of traverse_binary.cu (K5's card walk) and
+    tri_blocks.cu (K6's tile kernel) through the CUDA emulation, bound as
+    the wrappers bind the card's libraries."""
+    return (tbb._bind(emulated_build(tmp_path_factory,
+                                     "traverse_binary.cu")),
+            ttb._bind(emulated_build(tmp_path_factory, "tri_blocks.cu")))
+
+
+@pytest.fixture
+def emulated(card_libs, monkeypatch):
+    """binary_bvh._launch and tri_blocks._launch on CPU tensors, through
+    the emulated card builds; returns both modules' launch counts."""
+    monkeypatch.setattr(tbb, "_lib", card_libs[0])
+    monkeypatch.setattr(ttb, "_lib", card_libs[1])
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    launches = (dict.fromkeys(tbb.LAUNCHES, 0), dict.fromkeys(ttb.LAUNCHES, 0))
+    monkeypatch.setattr(tbb, "LAUNCHES", launches[0])
+    monkeypatch.setattr(ttb, "LAUNCHES", launches[1])
+    return launches
+
+
+def ragged_rays(name, seed, n=300):
+    """n rays into the mesh (scene_rays), every 7th dead (tmax < tmin)."""
+    o, d, tmin, tmax = scene_rays(name, seed, n)
+    tmax = tmax.copy()
+    tmax[3::7] = -1.0
+    return o, d, tmin, tmax
+
+
+def tie_rays(n, seed):
+    """Rays from (0, 0, -5) toward +z, onto tie_mesh's grid."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(0, 1, (n, 3))
+    d[:, 2] = np.abs(d[:, 2]) + 1.0
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o = np.tile(np.float32([[0, 0, -5]]), (n, 1))
+    return o, d, np.zeros(n, np.float32), np.full(n, 1e10, np.float32)
+
+
+def leaf_t(bvh, ids, r, sel):
+    """t of triangle ids (leaf*K + lane) for the rays r[sel], by the
+    port's leaf arithmetic (_BIG where it does not accept the ray)."""
+    from cse168_raytracer_tpu_torch.core.vecmath import cross
+    from cse168_raytracer_tpu_torch.ops.wide_bvh import _lane_t
+    o, d, tmin, tmax = (torch.as_tensor(x)[torch.as_tensor(sel)] for x in r)
+    m = cross(o, d)
+    ids = torch.as_tensor(ids).long()
+    col = lambda x: x[:, None]
+    tm = _lane_t(bvh.leafW[ids // tbb.K], [col(x) for x in (*d.T, *m.T)],
+                 [col(x) for x in o.T], col(tmin), col(tmax))
+    return tm[torch.arange(ids.shape[0]), ids % tbb.K].numpy()
+
+
+def check_k5_card(bvh, r):
+    """K5's card walk in its three modes (closest, any hit, each with and
+    without counters) equal to walk_binary_plain: t, id and both visit
+    counts. Returns the closest (t, id) and the any-hit t."""
+    args = [torch.as_tensor(x) for x in r]
+    out = {}
+    for any_hit in (False, True):
+        pt, pid, p_int, p_leaf = tbb.walk_binary_plain(bvh, *args,
+                                                       any_hit=any_hit)
+        for stats in (False, True):
+            t, ids, nv, lv = tbb._launch(bvh, *args, any_hit, stats)
+            assert torch.equal(t, pt)
+            if not any_hit:
+                assert torch.equal(ids, pid)
+            if stats:
+                assert torch.equal(nv, p_int) and torch.equal(lv, p_leaf)
+        out[any_hit] = (t.numpy(), ids.numpy())
+    return out[False], out[True][0]
+
+
+def pallas_k5(jtree, r, any_hit):
+    h = jpb.pallas_bvh_closest_hit_triangles(
+        jtree, *(jnp.asarray(x) for x in r), any_hit=any_hit, interpret=True)
+    return np.where(np.asarray(h.hit), np.asarray(h.t), BIG), \
+        np.asarray(h.prim_id)
+
+
+@pytest.mark.parametrize("kind", ["pallas_sah", "lbvh"])
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_k5_card_walk_matches_plain_and_pallas(emulated, name, kind):
+    """K5's card walk on the SAH tree and the implicit LBVH, 300 rays (the
+    last warp holds 12) with every 7th dead: equal to walk_binary_plain
+    in every mode, and to the Pallas kernel (interpreted) at
+    test_hits_match_jax's bar."""
+    jtree, bvh, _ = kind_pair(name, kind)
+    r = ragged_rays(name, 80 + len(kind))
+    (t, ids), occ = check_k5_card(bvh, r)
+    jt, jids = pallas_k5(jtree, r, False)
+    hit = assert_hits_match(t, ids, jt, jids)
+    assert 10 < hit.sum() and np.all(t[3::7] == BIG)
+    np.testing.assert_array_equal(occ < BIG, pallas_k5(jtree, r, True)[0]
+                                  < BIG)
+    assert emulated[0] == {"closest": 1, "any": 1, "stats_closest": 1,
+                           "stats_any": 1}
+
+
+def test_k5_card_walk_ties(emulated):
+    """A mesh whose every hit ties, on two lanes of one leaf and across
+    leaves: the card walk's ids are walk_binary_plain's and the Pallas
+    kernel's (the first lane, the first leaf the walk reaches)."""
+    meshes = [(tie_mesh(300, 25), 0)]
+    jnew, jtree = jpb.build_pallas_bvh_sah(jgeo.pack_triangles(meshes))
+    _, bvh = tbb.build_binary_bvh_sah(tgeo.pack_triangles(meshes,
+                                                          device="cpu"))
+    r = tie_rays(200, 26)
+    (t, ids), _ = check_k5_card(bvh, r)
+    jt, jids = pallas_k5(jtree, r, False)
+    hit = t < BIG
+    np.testing.assert_array_equal(hit, jt < BIG)
+    np.testing.assert_allclose(t[hit], jt[hit], rtol=RTOL, atol=0)
+    assert 10 < hit.sum() < 200
+    # the Pallas walk orders a tile's children by the tile's entry t, so
+    # where two leaves tie it may reach the other first: its triangle has
+    # the card walk's t exactly
+    differ = hit & (ids != jids)
+    np.testing.assert_array_equal(leaf_t(bvh, jids[differ], r, differ),
+                                  t[differ])
+
+
+def test_k5_card_walk_reports_errors(emulated):
+    """A stack overflow and a bad link raise at the launch; a stack over
+    the block's shared memory raises before it."""
+    import dataclasses
+    _, bvh, _ = kind_pair("clustered", "pallas_sah")
+    args = [torch.as_tensor(x) for x in ragged_rays("clustered", 90)]
+    with pytest.raises(RuntimeError, match="stack overflow"):
+        tbb._launch(dataclasses.replace(bvh, stack_depth=1), *args, False,
+                    False)
+    cbox = bvh.cbox.clone()
+    inner = cbox[:, 12] >= 0
+    cbox[inner, 12] += 10 ** 6
+    with pytest.raises(RuntimeError, match="bad link"):
+        tbb._launch(dataclasses.replace(bvh, cbox=cbox), *args, True, False)
+    lib = tbb._kernel_lib()
+    assert tbb._stack_smem_bytes(lib, 227) == 227 * 128 * 8
+    for depth in (0, 228):
+        with pytest.raises(ValueError, match="shared memory"):
+            tbb._stack_smem_bytes(lib, depth)
+    assert sum(emulated[0].values()) == 2
+
+
+def check_k6_card(blocks, r):
+    """K6's kernel equal to closest_hit_plain in t, id and the (tile,
+    block) pairs that passed the cull; returns (t, id, pairs)."""
+    args = [torch.as_tensor(x) for x in r]
+    pt, pid, ppairs = ttb.closest_hit_plain(blocks, *args, count_pairs=True)
+    t, ids, tiles = ttb._launch(blocks, *args, count_pairs=True)
+    assert torch.equal(t, pt) and torch.equal(ids, pid)
+    assert tiles.shape == (-(-len(t) // 256),) and int(tiles.sum()) == ppairs
+    return t.numpy(), ids.numpy(), ppairs
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_k6_card_matches_plain_and_pallas(emulated, name):
+    """K6's tile kernel on 600 rays (the last tile 88 rays and 168
+    padding rays), every 7th dead: equal to closest_hit_plain in t, id
+    and passing pairs, and to the Pallas kernel (interpreted)."""
+    jblocks, blocks, _ = kind_pair(name, "pallas")
+    r = ragged_rays(name, 100, 600)
+    t, ids, pairs = check_k6_card(blocks, r)
+    h = jpi.pallas_intersect_triangles(jblocks, *(jnp.asarray(x) for x in r),
+                                       interpret=True)
+    jt = np.where(np.asarray(h.hit), np.asarray(h.t), BIG)
+    hit = assert_hits_match(t, ids, jt, np.asarray(h.prim_id))
+    assert 10 < hit.sum() and np.all(t[3::7] == BIG)
+    assert 0 < pairs <= 3 * blocks.num_blocks
+    assert emulated[1] == {"closest": 1}
+
+
+def test_k6_card_ties(emulated):
+    """Two blocks of one tie mesh (64 triangles, each twice as it is and
+    twice scaled by 2: equal t on two lanes of a block, or four where a
+    ray hits both sizes), the second block a copy of the first (equal t
+    on one lane across blocks): the kernel keeps the least (t, lane,
+    block), as closest_hit_plain and the Pallas kernel (interpreted) do:
+    block 0, the first lane."""
+    mesh = tie_mesh(64, 27)
+    meshes = [(mesh, 0), (mesh, 0)]
+    jblocks = jpi.build_pallas_blocks(jgeo.pack_triangles(meshes, block=256))
+    blocks = ttb.build_tri_blocks(tgeo.pack_triangles(meshes, block=256,
+                                                      device="cpu"))
+    assert blocks.num_blocks == 2
+    r = tie_rays(300, 28)
+    t, ids, pairs = check_k6_card(blocks, r)
+    h = jpi.pallas_intersect_triangles(jblocks, *(jnp.asarray(x) for x in r),
+                                       interpret=True)
+    jt = np.where(np.asarray(h.hit), np.asarray(h.t), BIG)
+    hit = assert_hits_match(t, ids, jt, np.asarray(h.prim_id))
+    # the copies' t are equal in either arithmetic: the same winner
+    np.testing.assert_array_equal(ids, np.asarray(h.prim_id))
+    assert 10 < hit.sum() < 300 and pairs == 4
+    # block 0, and in it the first of the two copies (lanes 0-127)
+    assert np.all(ids[hit] < 128)
+

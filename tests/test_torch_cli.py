@@ -97,6 +97,18 @@ def test_cli_render_on_cpu(tmp_path, capsys):
     assert res["device"] == torch.device("cpu")
 
 
+@pytest.mark.parametrize("flag", ["--bench", "--no-photon-map"])
+def test_cli_accepts_flags_without_effect(flag, tmp_path, capsys):
+    """The JAX command line's --bench and --no-photon-map are accepted:
+    the port always times a steady-state render, and renders no photon
+    map without --photons."""
+    assert cli.main(["render", "--scene", "sphere", "--device", "cpu",
+                     "--width", "16", "--height", "16", "--depth", "2",
+                     "--out", str(tmp_path / "x.ppm"), flag]) == 0
+    assert "steady-state" in capsys.readouterr().err
+    assert load_ppm(tmp_path / "x.ppm").shape == (16, 16, 3)
+
+
 def test_cli_scenes(capsys):
     assert cli.main(["scenes"]) == 0
     assert capsys.readouterr().out.split() == ["sphere", "sponza_proxy",

@@ -266,10 +266,32 @@ def test_binary_kernel_reports_stack_overflow(cuda):
         binary_bvh.closest_hit_triangles(shallow, o, d, tmin, tmax)
 
 
+@pytest.mark.parametrize("depth", [60, 220])
+def test_binary_kernel_with_stacks_over_48_kb(cuda, depth):
+    """K5's card walk with 60 and 220 two-word stack slots a thread
+    (61,440 and 225,280 bytes of shared memory a block): the launch is
+    let take them, and the outputs equal walk_binary_plain's."""
+    from cse168_raytracer_tpu_torch.ops import binary_bvh
+    pack = pack_triangles([(clustered_mesh(3000, 21), 0)], device=cuda)
+    bvh = dataclasses.replace(binary_bvh.build_binary_bvh_sah(pack)[1],
+                              stack_depth=depth)
+    o, d, tmin, tmax = rays(66, 2048, cuda)
+    t, ids, box, tri = binary_bvh.closest_hit_triangles(
+        bvh, o, d, tmin, tmax, with_stats=True)
+    tp, idp, n_int, n_leaf = binary_bvh.walk_binary_plain(bvh, o, d, tmin,
+                                                          tmax)
+    assert torch.equal(t, tp) and torch.equal(ids, idp)
+    assert torch.equal(box, 2 * n_int) and torch.equal(tri, binary_bvh.K
+                                                       * n_leaf)
+    with pytest.raises(ValueError, match="shared memory"):
+        binary_bvh.closest_hit_triangles(
+            dataclasses.replace(bvh, stack_depth=228), o, d, tmin, tmax)
+
+
 def test_block_kernel_matches_plain_on_card(cuda):
-    """Kernel K6 against its plain version: t and id equal, on a ray
-    count that leaves a ragged last tile; its t equal to the brute
-    force's."""
+    """Kernel K6 against its plain version: t, id and the (tile, block)
+    pairs that passed the cull equal, on a ray count that leaves a ragged
+    last tile; its t equal to the brute force's."""
     from cse168_raytracer_tpu_torch.ops import accel, tri_blocks
     pack = pack_triangles([(clustered_mesh(3000, 20), 0)], block=256,
                           device=cuda)
@@ -286,6 +308,9 @@ def test_block_kernel_matches_plain_on_card(cuda):
     tp, idp, pairs = tri_blocks.closest_hit_plain(blocks, o, d, tmin, tmax,
                                                   count_pairs=True)
     assert torch.equal(t, tp) and torch.equal(ids, idp) and pairs > 0
+    # the tiles' passing blocks, as the kernel counts them
+    assert int(tri_blocks._launch(blocks, o, d, tmin, tmax,
+                                  count_pairs=True)[2].sum()) == pairs
     hit = t < BIG
     assert 0 < int(hit.sum()) < 4000
     wt = wide_bvh.brute_force_triangles(

@@ -10,6 +10,7 @@ The kernel itself runs only on a GPU: tests/test_torch_cuda.py."""
 
 import ctypes
 import dataclasses
+import re
 import shutil
 import subprocess
 
@@ -288,11 +289,15 @@ def test_kernel_walk_reports_stack_overflow(host_walk):
 # the card walk, its warp collectives emulated on the host
 # ---------------------------------------------------------------------------
 
-# What traverse_wide.cu's -D__CUDACC__ build uses of CUDA, on the host:
-# a warp is 32 std::threads that meet at a barrier for every collective,
-# the warps of a launch run one after another, shared memory is one
-# buffer per block, and the intrinsics round as the card's do (no fused
-# multiply-add: the build passes -ffp-contract=off).
+# What the kernels' -D__CUDACC__ builds use of CUDA, on the host: the
+# threads of a block run at once as std::threads, a warp's 32 meet at a
+# barrier for every collective and the block's at another for
+# __syncthreads; the blocks of a launch run one after another, shared
+# memory is one 16-byte-aligned buffer per block, and the intrinsics
+# round as the card's do (no fused multiply-add: the build passes
+# -ffp-contract=off). An asynchronous copy (__pipeline_memcpy_async) is
+# held back until __pipeline_wait_prior lets its group land, so a kernel
+# that reads a staged buffer before waiting for it reads stale data here.
 CUDA_EMULATION_H = r"""
 #pragma once
 #include <barrier>
@@ -302,6 +307,7 @@ CUDA_EMULATION_H = r"""
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
@@ -310,10 +316,10 @@ CUDA_EMULATION_H = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__ __restrict
-struct float4 { float x, y, z, w; };
+struct alignas(16) float4 { float x, y, z, w; };
 struct emu_dim3 { unsigned x, y, z; };
-inline thread_local emu_dim3 threadIdx, blockIdx;
-inline thread_local int* emu_smem;
+inline thread_local emu_dim3 threadIdx, blockIdx, blockDim;
+inline thread_local void* emu_smem;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
@@ -336,8 +342,31 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int min(int a, int b) { return a < b ? a : b; }
 inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
+inline unsigned __float_as_uint(float f) {
+  unsigned i;
+  memcpy(&i, &f, 4);
+  return i;
+}
+inline float __uint_as_float(unsigned i) { float f; memcpy(&f, &i, 4); return f; }
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicMin(unsigned long long* p,
+                                    unsigned long long v) {
+  unsigned long long old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (v < old && !__atomic_compare_exchange_n(p, &old, v, false,
+                                                 __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
 inline int atomicOr(int* p, int v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
   return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
 }
 
@@ -345,8 +374,15 @@ struct EmuWarp {
   std::barrier<> bar{32};
   uint64_t buf[2][32];
 };
+struct EmuBlock {
+  explicit EmuBlock(int n) : bar(n), flags{std::vector<int>(n),
+                                          std::vector<int>(n)} {}
+  std::barrier<> bar;
+  std::vector<int> flags[2];
+};
 inline thread_local EmuWarp* emu_warp;
-inline thread_local int emu_parity;
+inline thread_local EmuBlock* emu_block;
+inline thread_local int emu_parity, emu_block_parity;
 // every lane posts v and waits for the others; two buffers in turn, so a
 // lane that runs ahead to the next collective overwrites nothing read
 inline const uint64_t* emu_exchange(uint64_t v, unsigned mask) {
@@ -383,41 +419,90 @@ inline unsigned __match_any_sync(unsigned m, int v) {
   for (int l = 0; l < 32; ++l) r |= (int)b[l] == v ? 1u << l : 0u;
   return r;
 }
+inline int __any_sync(unsigned m, int pred) {
+  return __ballot_sync(m, pred) != 0;
+}
 inline int __reduce_min_sync(unsigned m, int v) {
   const uint64_t* b = emu_exchange(emu_bits(v), m);
   int r = (int)b[0];
   for (int l = 1; l < 32; ++l) r = (int)b[l] < r ? (int)b[l] : r;
   return r;
 }
+// the block's barrier; the two flag buffers in turn, as emu_exchange's
+inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
+inline int __syncthreads_or(int pred) {
+  const int p = emu_block_parity;
+  emu_block_parity ^= 1;
+  std::vector<int>& f = emu_block->flags[p];
+  f[threadIdx.x] = pred != 0;
+  emu_block->bar.arrive_and_wait();
+  int any = 0;
+  for (int x : f) any |= x;
+  return any;
+}
+
+// cp.async: each thread's copies wait in groups until a wait lets them
+// land, oldest first
+struct EmuCopy { void* dst; const void* src; size_t n; };
+inline thread_local std::vector<std::vector<EmuCopy>> emu_groups;
+inline thread_local std::vector<EmuCopy> emu_open;
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+  if (n != 16 || (uintptr_t)dst % 16 || (uintptr_t)src % 16) {
+    fprintf(stderr, "cp.async: need 16 aligned bytes\n");
+    abort();
+  }
+  emu_open.push_back({dst, src, n});
+}
+inline void __pipeline_commit() {
+  emu_groups.push_back(emu_open);
+  emu_open.clear();
+}
+inline void __pipeline_wait_prior(size_t prior) {
+  while (emu_groups.size() > prior) {
+    for (const EmuCopy& c : emu_groups.front()) memcpy(c.dst, c.src, c.n);
+    emu_groups.erase(emu_groups.begin());
+  }
+}
+
 // kernel<<<blocks, threads, smem, stream>>>(args), rewritten as a call
 inline void emu_launch(int blocks, int threads, long smem, void*,
                        std::function<void()> kernel) {
   for (int b = 0; b < blocks; ++b) {
-    std::vector<int> shared(smem / 4 + 1, 0x7eadbeef);
-    for (int w = 0; w < threads / 32; ++w) {
-      EmuWarp warp;
-      std::vector<std::thread> lanes;
-      for (int l = 0; l < 32; ++l)
-        lanes.emplace_back([&, l] {
-          threadIdx = {unsigned(w * 32 + l), 0, 0};
-          blockIdx = {unsigned(b), 0, 0};
-          emu_smem = shared.data();
-          emu_warp = &warp;
-          emu_parity = 0;
-          kernel();
-        });
-      for (auto& t : lanes) t.join();
-    }
+    std::vector<float4> shared(smem / 16 + 1);
+    memset(shared.data(), 0x7e, shared.size() * 16);
+    EmuBlock block(threads);
+    std::vector<std::unique_ptr<EmuWarp>> warps;
+    for (int w = 0; w < threads / 32; ++w)
+      warps.push_back(std::make_unique<EmuWarp>());
+    std::vector<std::thread> lanes;
+    for (int x = 0; x < threads; ++x)
+      lanes.emplace_back([&, x] {
+        threadIdx = {unsigned(x), 0, 0};
+        blockIdx = {unsigned(b), 0, 0};
+        blockDim = {unsigned(threads), 1, 1};
+        emu_smem = shared.data();
+        emu_warp = warps[x / 32].get();
+        emu_block = &block;
+        emu_parity = emu_block_parity = 0;
+        emu_groups.clear();
+        emu_open.clear();
+        kernel();
+      });
+    for (auto& t : lanes) t.join();
   }
 }
 """
 
+# cuda_pipeline_primitives.h of the emulation: its functions are above
+CUDA_PIPELINE_H = '#pragma once\n#include "cuda_runtime.h"\n'
+
 
 def emulated_source(src):
-    """traverse_wide.cu with its dynamic shared memory taken from the
+    """A kernel source with its dynamic shared memory taken from the
     emulation and each `kernel<<<cfg>>>(args)` made emu_launch(cfg,
     [&] { kernel(args); })."""
-    src = src.replace("extern __shared__ int smem[];", "int* smem = emu_smem;")
+    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                 r"\1* \2 = (\1*)emu_smem;", src)
     out, i = [], 0
     while (j := src.find("<<<", i)) >= 0:
         k, depth = j, 0         # back over the kernel's name and <...>
@@ -443,25 +528,32 @@ def emulated_source(src):
     return "".join(out) + src[i:]
 
 
+def emulated_build(tmp_path_factory, source):
+    """The card build of csrc/<source> compiled for the host against
+    CUDA_EMULATION_H, loaded (unbound)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build a card kernel for the host")
+    tmp = tmp_path_factory.mktemp("card_" + source.split(".")[0])
+    (tmp / "cuda_runtime.h").write_text(CUDA_EMULATION_H)
+    (tmp / "cuda_pipeline_primitives.h").write_text(CUDA_PIPELINE_H)
+    shutil.copy(twb.cuda_build.CSRC + "/pluecker.cuh", tmp)
+    cpp = tmp / (source.split(".")[0] + ".cpp")
+    with open(twb.cuda_build.CSRC + "/" + source) as f:
+        cpp.write_text(emulated_source(f.read()))
+    lib_path = str(tmp / "libcard.so")
+    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
+                    "-D__CUDACC__", "-I", str(tmp), "-shared", "-fPIC",
+                    "-pthread", "-w", "-o", lib_path, str(cpp)], check=True)
+    return ctypes.CDLL(lib_path)
+
+
 @pytest.fixture(scope="module")
 def card_walk(tmp_path_factory):
     """The card build of traverse_wide.cu (the warp-cooperative walk, its
-    stacks in shared memory) compiled for the host against
-    CUDA_EMULATION_H, bound as the wrapper binds the card's library."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the card walk for the host")
-    tmp = tmp_path_factory.mktemp("card_walk")
-    (tmp / "cuda_runtime.h").write_text(CUDA_EMULATION_H)
-    shutil.copy(twb.cuda_build.CSRC + "/pluecker.cuh", tmp)
-    with open(twb.cuda_build.CSRC + "/traverse_wide.cu") as f:
-        (tmp / "traverse_wide.cpp").write_text(emulated_source(f.read()))
-    lib_path = str(tmp / "libcardwalk.so")
-    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
-                    "-D__CUDACC__", "-I", str(tmp), "-shared", "-fPIC",
-                    "-pthread", "-w", "-o", lib_path,
-                    str(tmp / "traverse_wide.cpp")], check=True)
-    return twb._bind(ctypes.CDLL(lib_path))
+    stacks in shared memory) through the emulation, bound as the wrapper
+    binds the card's library."""
+    return twb._bind(emulated_build(tmp_path_factory, "traverse_wide.cu"))
 
 
 @pytest.fixture
