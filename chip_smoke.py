@@ -34,6 +34,16 @@ dead-ray and tie cases, (c) a collect_stats render through K5 and
 traversal_stats, (d) a forward render with each of "block", "bvh", "packet" and
 "pallas_forest" against auto's, and (e) the W=8 kernel (K4) on the
 400k-triangle proxy, timed with its bound and beside the per-ray kernel.
+Phase 10 runs the textures and the registry at 512x512 and the
+registered trace depth: (a) sponza_proxy's mesh written as an OBJ, read
+back by the port's load_obj (vertices bit for bit) and rendered by
+`cli render --scene sponza` with CSE168_SPONZA_OBJ naming it; (b) that
+mesh with stone (bump-mapped), stem, cellular and cloud materials, a
+glass sphere and an evaluated cloud environment, forward and forward +
+backward w.r.t. kd, and against the CPU's image at 64x64 by
+tests/test_golden.py's bar; (c) `cli render` of refract_spheres,
+texture_plane, cellular_plane, spiral and sponza (the substitute); (d)
+the K1/K2 launches of (a)-(c) and the peak device memory of (b).
 Each phase prints its own lines; any failure raises and exits non-zero.
 The second-to-last line is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it
@@ -74,6 +84,11 @@ OPS_PER_RAY = 12     # 3 reciprocals and the 9 operations of the moment
 OPS_PER_BOX = 25     # tri_blocks.cu's slab: per axis 4 sub/mul, 4 min/max
 KINDS_RES = 512      # phase 9(d)'s renders
 FOREST_CHUNK = 65_536
+TEXTURED_RES = 512   # phase 10's renders, at the registered trace depth
+TEXTURED_CPU_RES = 64  # phase 10(b)'s card-vs-CPU image
+TEXTURED_REPS = 3
+ASSET_FREE = ("refract_spheres", "texture_plane", "cellular_plane", "spiral",
+              "sponza")
 
 
 def log(*args):
@@ -1482,6 +1497,229 @@ def phase_kinds(device, sponza_rays):
     return steps, k5, stats_launches, others, k4
 
 
+# ---------------------------------------------------------------------------
+# phase 10: textures, bump maps, the OBJ loader and the registry's scenes
+# ---------------------------------------------------------------------------
+
+def write_proxy_obj(path):
+    """sponza_proxy's 159,960-triangle mesh as an OBJ: vertices in %.9g,
+    which float32 round-trips, a texture coordinate per vertex ((x, z) /
+    2, the atrium's floor plan) and a normal per triangle. Returns the
+    mesh."""
+    from cse168_raytracer_tpu_torch.scenes.registry import _make_sponza_proxy
+    mesh = _make_sponza_proxy()
+    v = mesh["vertices"].astype(np.float64)
+    f = mesh["tri_vidx"] + 1
+    k = np.arange(1, f.shape[0] + 1)
+    with open(path, "w") as fh:
+        np.savetxt(fh, v, fmt="v %.9g %.9g %.9g")
+        np.savetxt(fh, v[:, [0, 2]] / 2, fmt="vt %.9g %.9g")
+        np.savetxt(fh, mesh["normals"][mesh["tri_nidx"][:, 0]],
+                   fmt="vn %.9g %.9g %.9g")
+        np.savetxt(fh, np.stack([f[:, 0], f[:, 0], k, f[:, 1], f[:, 1], k,
+                                 f[:, 2], f[:, 2], k], 1),
+                   fmt="f %d/%d/%d %d/%d/%d %d/%d/%d")
+    return mesh
+
+
+def textured_scene(mesh, device):
+    """Phase 10(b)'s scene, built through the port's public API as
+    mixed_scene is: the loaded mesh cut by triangle centroid x into four
+    parts, stone (with its bump map), stem, cellular and cloud (3D, on
+    world x and y); one glass sphere; a cloud environment that is
+    evaluated (quirk_cloud_env_black=False); sponza's camera, and one
+    200 W point light inside the atrium (LIT_LIGHT, as lit_sponza)."""
+    from cse168_raytracer_tpu_torch.models import materials as m
+    from cse168_raytracer_tpu_torch.models.geometry import (make_sphere_pool,
+                                                            pack_triangles)
+    from cse168_raytracer_tpu_torch.models.scene import make_scene
+    from cse168_raytracer_tpu_torch.models.textures import (
+        build_cellular_texture, make_environment)
+    from cse168_raytracer_tpu_torch.render.camera import make_camera
+    from cse168_raytracer_tpu_torch.scenes.registry import CLOUD_PARAMS_A3
+    mb = m.MaterialBuilder()
+    parts = [mb.textured(m.TEX_STONE, [1.0]), mb.textured(m.TEX_STEM, [2.0]),
+             mb.textured(m.TEX_CELLULAR, [1.0], image_id=0),
+             mb.textured(m.TEX_CLOUD, CLOUD_PARAMS_A3)]
+    glass = mb.phong(kd=(0, 0, 0), kt=(0.9, 0.9, 0.9), shininess=100,
+                     ior=1.5)
+    cx = mesh["vertices"][mesh["tri_vidx"]].mean(1)[:, 0]
+    part = np.digitize(cx, [-5.0, 1.0, 5.0])
+    keys = ("tri_vidx", "tri_nidx", "tri_tidx")
+    meshes = [({**mesh, **{k: mesh[k][part == i] for k in keys}}, mat)
+              for i, mat in enumerate(parts)]
+    scene, static = make_scene(
+        tris=pack_triangles(meshes, device=device),
+        spheres=make_sphere_pool([(3.5, 1.2, 0.0)], [0.9], [glass], device),
+        materials=mb.build(device),
+        lights=[dict(kind=0, position=LIT_LIGHT, color=(1, 1, 1),
+                     wattage=200.0)],
+        env=make_environment(cloud_params=CLOUD_PARAMS_A3,
+                             quirk_cloud_env_black=False, device=device),
+        cellulars=[build_cellular_texture(1000, 10, 10, seed=SEED,
+                                          device=device)], device=device)
+    cam = make_camera(eye=(8, 1.5, 1), look_at=(0, 2.5, -1), fov=55,
+                      bg_color=(0, 0, 0.2), device=device)
+    return scene, static, cam
+
+
+def cli_render(name, tmp, label):
+    """`cli render --scene name` at TEXTURED_RES as registered, its
+    [scene] ... [out] lines on this script's output. Returns its result
+    after checking the image's shape and values."""
+    import torch
+    from cse168_raytracer_tpu_torch import cli
+    out = os.path.join(tmp, f"{name}.png")
+    argv = ["render", "--scene", name, "--width", str(TEXTURED_RES),
+            "--height", str(TEXTURED_RES), "--out", out]
+    log(f"[10{label} cli] python -m cse168_raytracer_tpu_torch.cli "
+        + " ".join(argv[:-2]))
+    with contextlib.redirect_stderr(sys.stdout):
+        res = cli.render(cli.parser().parse_args(argv))
+    hdr = res["hdr"]
+    if hdr.shape != (TEXTURED_RES, TEXTURED_RES, 3) or not bool(
+            torch.isfinite(hdr).all()) or not os.path.getsize(out):
+        raise AssertionError(f"cli {name}: no image, or a NaN in it")
+    return res
+
+
+def byte_diff(a, b):
+    """|difference| of the sigmoid-tonemapped bytes of two HDR images."""
+    from cse168_raytracer_tpu_torch.render.tonemap import (sigmoid_tonemap,
+                                                           to_bytes)
+    qa, qb = (to_bytes(sigmoid_tonemap(x.cpu())).numpy().astype(np.int32)
+              for x in (a, b))
+    return np.abs(qa - qb)
+
+
+def phase_textured(device, card):
+    """Phase 10 (a)-(d): the OBJ loader at full size, a textured and
+    bump-mapped mesh forward and backward, and the asset-free scenes
+    through the command line, all at TEXTURED_RES and the registered
+    trace depth."""
+    import torch
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.models.obj import load_obj
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the OBJ loader at full size, and sponza from it
+        path = os.path.join(tmp, "sponza_proxy.obj")
+        t0 = time.perf_counter()
+        mesh = write_proxy_obj(path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_obj(path)
+        load_s = time.perf_counter() - t0
+        if loaded["vertices"].tobytes() != mesh["vertices"].tobytes():
+            raise AssertionError("the loaded OBJ's vertices differ from "
+                                 "sponza_proxy's")
+        log(f"[10a obj] {loaded['tri_vidx'].shape[0]} triangles, "
+            f"{loaded['vertices'].shape[0]} vertices written in "
+            f"{write_s:.3f} s ({os.path.getsize(path) / 2**20:.1f} MiB), "
+            f"loaded by load_obj in {load_s:.3f} s; vertices equal "
+            "sponza_proxy's bit for bit")
+        zero_launches(wb)
+        os.environ["CSE168_SPONZA_OBJ"] = path
+        try:
+            res = cli_render("sponza", tmp, "a")
+        finally:
+            del os.environ["CSE168_SPONZA_OBJ"]
+        out["a"] = {"ms": res["steady_s"] * 1e3, "launches": dict(wb.LAUNCHES)}
+        log(f"[10a obj] sponza from the OBJ: {out['a']['ms']:.3f} ms per "
+            f"render, {res['rays']} rays; launches {out['a']['launches']}; "
+            f"card {card}")
+        if min(out["a"]["launches"][k] for k in ("closest", "any")) < 1:
+            raise AssertionError("sponza from the OBJ did not run K1 and K2")
+
+    # (b) the textured, bump-mapped mesh
+    zero_launches(wb)
+    torch.cuda.reset_peak_memory_stats(device)
+    scene, static, cam = textured_scene(loaded, device)
+    t0 = time.perf_counter()
+    scene = attach_accel(scene)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = RenderConfig(width=TEXTURED_RES, height=TEXTURED_RES)
+    log(f"[10b textured] {scene.tris.n_valid} triangles in 4 textured "
+        f"parts + a glass sphere, kinds {static.texture_kinds}, bump "
+        f"{static.any_bump}; accel build {build_s:.3f} s; "
+        f"{TEXTURED_RES}x{TEXTURED_RES}, depth {cfg.trace_depth}")
+    with torch.no_grad():
+        hdr, stats = render_hdr(scene, static, cam, cfg)
+        fwd_ms = time_cuda(lambda: render_hdr(scene, static, cam, cfg),
+                           TEXTURED_REPS)
+    if not bool(torch.isfinite(hdr).all()) or not bool(hdr.max() > hdr.min()):
+        raise AssertionError("textured scene: NaN or constant image")
+    _, grad, _, step_ms, step_host_ms = timed_steps(scene, static, cam, cfg,
+                                                    TEXTURED_REPS - 1)
+    peak = torch.cuda.max_memory_allocated(device)
+    if not bool(torch.isfinite(grad).all()) or not bool(grad.abs().sum() > 0):
+        raise AssertionError("textured scene: kd gradient non-finite or 0")
+    rays = (int(stats.primary_rays) + int(stats.secondary_rays)
+            + int(stats.shadow_rays))
+    out["b"] = {"fwd_ms": fwd_ms, "step_ms": step_ms,
+                "peak_mib": peak / 2**20}
+    log(f"[10b textured] forward {fwd_ms:.3f} ms (CUDA events, "
+        f"{TEXTURED_REPS} runs after a warm-up); fwd+bwd w.r.t. kd "
+        f"{step_ms:.3f} ms ({step_host_ms:.3f} ms host clock); {rays} rays "
+        f"({int(stats.secondary_rays)} secondary); peak device memory "
+        f"{peak / 2**20:.1f} MiB; image mean {float(hdr.mean()):.6g}; "
+        f"|grad| sum {float(grad.abs().sum()):.6g}; card {card}")
+
+    # card against CPU on the same scene, tests/test_golden.py's bar
+    small = RenderConfig(width=TEXTURED_CPU_RES, height=TEXTURED_CPU_RES)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        card_hdr = render_hdr(scene, static, cam, small)[0]
+        cs, cst, ccam = textured_scene(loaded, torch.device("cpu"))
+        cpu_hdr = render_hdr(attach_accel(cs), cst, ccam, small)[0]
+    diff = byte_diff(card_hdr, cpu_hdr)
+    within2, mean = float(np.mean(diff <= 2)), float(diff.mean())
+    over1 = int((diff > 1).any(-1).sum())
+    log(f"[10b textured] card vs CPU {TEXTURED_CPU_RES}x{TEXTURED_CPU_RES}: "
+        f"{within2 * 100:.3f}% of bytes within +-2, mean |diff| {mean:.4f}, "
+        f"{over1} of {diff.shape[0] * diff.shape[1]} pixels and "
+        f"{int((diff > 1).sum())} of {diff.size} bytes outside +-1, max "
+        f"{int(diff.max())} ({time.perf_counter() - t0:.1f} s)")
+    if within2 < 0.999 or mean > 0.05:
+        raise AssertionError("textured scene: card and CPU images disagree")
+    out["b"]["launches"] = dict(wb.LAUNCHES)
+    del scene, cs
+
+    # (c) the asset-free scenes as registered
+    zero_launches(wb)
+    out["c"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ASSET_FREE:
+            before = dict(wb.LAUNCHES)
+            res = cli_render(name, tmp, "c")
+            hdr = res["hdr"]
+            if not bool(hdr.max() > hdr.min()):
+                raise AssertionError(f"cli {name}: constant image")
+            k12 = {k: wb.LAUNCHES[k] - before[k] for k in ("closest", "any")}
+            out["c"][name] = {"ms": res["steady_s"] * 1e3, "launches": k12}
+            log(f"[10c cli] {name}: {res['steady_s'] * 1e3:.3f} ms per "
+                f"render, {res['rays']} rays, K1/K2 launches {k12}; image "
+                f"mean {float(hdr.mean()):.6g}; card {card}")
+    if min(out["c"]["spiral"]["launches"].values()) < 1:
+        raise AssertionError("spiral's triangle did not go through K1 and K2")
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in ("a", "b"))
+                       + sum(r["launches"][k] for r in out["c"].values())
+                       for k in ("closest", "any")}
+    log(f"[10d counts] K1/K2 launches: (a) "
+        f"{ {k: out['a']['launches'][k] for k in ('closest', 'any')} }, (b) "
+        f"{ {k: out['b']['launches'][k] for k in ('closest', 'any')} }, (c) "
+        f"{ {n: r['launches'] for n, r in out['c'].items()} }; total "
+        f"{out['launches']}; peak device memory of (b) "
+        f"{out['b']['peak_mib']:.1f} MiB; phase 10 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     device, card = phase_device()
     build_s, ptxas = phase_build()
@@ -1497,6 +1735,7 @@ def main():
     timing = phase_plain_timing(device, main_run, errs)
     cli_runs, cli_launches = phase_cli(device, card)
     steps, k5, k5_stats_launches, _, k4 = phase_kinds(device, sponza_rays)
+    textured = phase_textured(device, card)
     import torch
     src = "cse168_raytracer_tpu_torch/csrc/traverse_wide.cu"
     replaces = "cse168_raytracer_tpu/ops/pallas_bvh.py:1056"
@@ -1514,13 +1753,15 @@ def main():
     kernels = [
         {"name": "traverse_wide closest+attr (W=4)", "route": "cuda",
          "source": src, "replaces": replaces,
-         "launches": main_run["launches"]["closest"],
+         "launches": (main_run["launches"]["closest"]
+                      + textured["launches"]["closest"]),
          "max_abs_err": errs["closest"], "library_ms": None,
          **{k: timing["closest"][k] for k in wkeys},
          **regs("W=4 closest")},
         {"name": "traverse_wide any-hit (W=4)", "route": "cuda",
          "source": src, "replaces": replaces,
-         "launches": main_run["launches"]["any"],
+         "launches": (main_run["launches"]["any"]
+                      + textured["launches"]["any"]),
          "max_abs_err": errs["any"], "library_ms": None,
          **{k: timing["any"][k] for k in wkeys}, **regs("W=4 any")},
         {"name": "traverse_wide with counters, closest+attr and any-hit "
@@ -1574,7 +1815,9 @@ def main():
         f"{main_run['lit']['ms']:.3f} ms/step lit; cli render (a) "
         f"{a['ms']:.3f} ms, (b) {b['ms_per_sample']:.3f} ms/sample; "
         f"pallas_sah step {steps['pallas_sah step']['ms']:.3f} ms, pallas "
-        f"step {steps['pallas step']['ms']:.3f} ms (lit); card {card}")
+        f"step {steps['pallas step']['ms']:.3f} ms (lit); textured mesh "
+        f"fwd {textured['b']['fwd_ms']:.3f} ms, fwd+bwd "
+        f"{textured['b']['step_ms']:.3f} ms; card {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,9 @@ from cse168_raytracer_tpu_torch.models.geometry import (PlanePool, SpherePool,
 from cse168_raytracer_tpu_torch.models.lights import light_table_from_arrays
 from cse168_raytracer_tpu_torch.models.materials import MaterialTable
 from cse168_raytracer_tpu_torch.models.scene import Scene, SceneStatic
-from cse168_raytracer_tpu_torch.models.textures import Environment
+from cse168_raytracer_tpu_torch.models.textures import (CellularTexture,
+                                                        Environment,
+                                                        ImageTexture)
 from cse168_raytracer_tpu_torch.render.camera import (Camera,
                                                       camera_from_arrays)
 
@@ -33,18 +35,22 @@ def _fields(obj, names, device):
     return {k: _t(getattr(obj, k), device) for k in names}
 
 
+def _image(tex, device) -> ImageTexture:
+    return ImageTexture(image=_t(tex.image, device),
+                        lowres=_t(tex.lowres, device),
+                        max_intensity=_t(tex.max_intensity, device),
+                        is_hdr=bool(tex.is_hdr))
+
+
 def scene_from_numpy(scene, static, device=None):
     """(Scene, SceneStatic) of the port from the JAX package's scene and
-    static facts with numpy leaves."""
+    static facts with numpy leaves: geometry, materials, lights, the
+    environment (its image map too), image and cellular textures.
+    Photon maps and bilinear patches are not ported yet and raise."""
     device = resolve_device(device)
-    for name in ("images", "cellulars"):
-        if len(getattr(scene, name, ())):
-            raise NotImplementedError(f"scene.{name}: ROADMAP item A10")
     for name in ("photons", "blpatches"):
         if getattr(scene, name, None) is not None:
             raise NotImplementedError(f"scene.{name} is not ported yet")
-    if scene.env.image is not None:
-        raise NotImplementedError("image environments: ROADMAP item A10")
 
     tp = scene.tris
     pack = TrianglePack(
@@ -69,12 +75,18 @@ def scene_from_numpy(scene, static, device=None):
                                      lt.dims, device)
     env = scene.env
     environment = Environment(
+        image=None if env.image is None else _image(env.image, device),
         cloud_params=(None if env.cloud_params is None
                       else _t(env.cloud_params, device)),
         rotation=_t(env.rotation, device), bg_color=_t(env.bg_color, device),
         quirk_cloud_env_black=bool(env.quirk_cloud_env_black))
+    cellulars = tuple(
+        CellularTexture(points=_t(c.points, device), valid=_t(c.valid, device),
+                        halo=int(c.halo)) for c in scene.cellulars)
     port_scene = Scene(tris=pack, spheres=spheres, planes=planes,
-                       materials=materials, lights=lights, env=environment)
+                       materials=materials, lights=lights, env=environment,
+                       images=tuple(_image(i, device) for i in scene.images),
+                       cellulars=cellulars)
     port_static = SceneStatic(
         texture_kinds=tuple(int(k) for k in static.texture_kinds),
         any_bump=bool(static.any_bump), num_lights=int(static.num_lights),

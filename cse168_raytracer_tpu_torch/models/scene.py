@@ -1,7 +1,8 @@
 """Scene container and its static facts.
 
 Counterpart of cse168_raytracer_tpu/models/scene.py: the geometry
-pools, material and light tables and environment in one dataclass, plus
+pools, material and light tables, environment, image textures and
+cellular textures in one dataclass, plus
 `SceneStatic`, the host-known facts that select code paths (texture
 kinds present, bump maps, light count, reflective / refractive
 materials).
@@ -10,7 +11,7 @@ materials).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -24,7 +25,9 @@ from cse168_raytracer_tpu_torch.models.lights import (LightTable,
                                                       make_light_table)
 from cse168_raytracer_tpu_torch.models.materials import (MaterialBuilder,
                                                          MaterialTable)
-from cse168_raytracer_tpu_torch.models.textures import (Environment,
+from cse168_raytracer_tpu_torch.models.textures import (CellularTexture,
+                                                        Environment,
+                                                        ImageTexture,
                                                         active_kinds,
                                                         has_bump,
                                                         make_environment)
@@ -39,6 +42,9 @@ class Scene:
     materials: MaterialTable
     lights: LightTable
     env: Environment
+    images: Tuple[ImageTexture, ...] = ()
+    # cellular point-set textures (CellularTexture2D, Texture.h:84-99)
+    cellulars: Tuple[CellularTexture, ...] = ()
     accel: Optional[object] = None
 
     def replace(self, **kw) -> "Scene":
@@ -74,6 +80,8 @@ def make_scene(tris: Optional[TrianglePack] = None,
                materials: Optional[MaterialTable] = None,
                lights: Optional[Sequence[dict]] = None,
                env: Optional[Environment] = None,
+               images: Sequence[ImageTexture] = (),
+               cellulars: Sequence[CellularTexture] = (),
                device=None) -> tuple[Scene, SceneStatic]:
     device = resolve_device(device)
     if tris is None:
@@ -89,5 +97,6 @@ def make_scene(tris: Optional[TrianglePack] = None,
     if env is None:
         env = make_environment(device=device)
     scene = Scene(tris=tris, spheres=spheres, planes=planes,
-                  materials=materials, lights=light_table, env=env)
+                  materials=materials, lights=light_table, env=env,
+                  images=tuple(images), cellulars=tuple(cellulars))
     return scene, make_static(materials, light_table)

@@ -1,10 +1,13 @@
 """Where the time of one main-path step goes, on one NVIDIA GPU.
 
     python -m cse168_raytracer_tpu_torch.profile_step [--res 512] [--steps 3]
-        [--render] [--accel KIND]
+        [--render] [--accel KIND] [--scene NAME]
 
 Builds sponza_proxy with its light inside the atrium (as chip_smoke.py's
-lit run), attaches the accelerator KIND (ops/accel.py; default "auto",
+lit run; with --scene, that registry scene as registered, at its
+registered trace depth, for example refract_spheres for the stone
+texture and bump map at every level), attaches the accelerator KIND
+(ops/accel.py; default "auto",
 the wide BVH; the counterpart of the second argument of the JAX
 package's tools/perf/profile_phases.py) and times fwd+bwd steps of
 sum(render_hdr) with respect to kd by CUDA events; with --render, the
@@ -28,7 +31,7 @@ from cse168_raytracer_tpu_torch.models.lights import (LIGHT_POINT,
                                                       make_light_table)
 from cse168_raytracer_tpu_torch.ops.accel import KINDS, attach_accel
 from cse168_raytracer_tpu_torch.render.integrator import render_hdr
-from cse168_raytracer_tpu_torch.scenes import build
+from cse168_raytracer_tpu_torch.scenes import SCENES, build
 
 
 def step(scene, static, cam, cfg):
@@ -50,6 +53,9 @@ def main(argv=None):
                          "(cli render --stats) instead of the fwd+bwd step")
     ap.add_argument("--accel", default="auto", choices=KINDS,
                     help="accelerator kind (ops/accel.py)")
+    ap.add_argument("--scene", default="sponza_proxy", choices=sorted(SCENES),
+                    help="registry scene; sponza_proxy is lit and traced "
+                         "to depth 4, any other as registered")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA device")
@@ -57,11 +63,16 @@ def main(argv=None):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
-    cfg = RenderConfig(width=args.res, height=args.res, trace_depth=4)
-    scene, static, cam, cfg = build("sponza_proxy", cfg, device=dev)
-    scene = attach_accel(scene, args.accel).replace(lights=make_light_table(
-        [dict(kind=LIGHT_POINT, position=(0.0, 8.0, 0.0), color=(1, 1, 1),
-              wattage=200.0)], dev))
+    lit = args.scene == "sponza_proxy"
+    cfg = RenderConfig(width=args.res, height=args.res)
+    if lit:
+        cfg = cfg.replace(trace_depth=4)
+    scene, static, cam, cfg = build(args.scene, cfg, device=dev)
+    scene = attach_accel(scene, args.accel)
+    if lit:
+        scene = scene.replace(lights=make_light_table(
+            [dict(kind=LIGHT_POINT, position=(0.0, 8.0, 0.0),
+                  color=(1, 1, 1), wattage=200.0)], dev))
     if args.render:
         cfg = cfg.replace(collect_stats=True)
 
@@ -80,7 +91,8 @@ def main(argv=None):
         work()
     end.record()
     torch.cuda.synchronize()
-    print(f"{'render' if args.render else 'step'} (accel {args.accel}) "
+    print(f"{args.scene} {'render' if args.render else 'step'} (accel "
+          f"{args.accel}, depth {cfg.trace_depth}) "
           f"{start.elapsed_time(end) / args.steps:.3f} ms "
           f"(CUDA events, mean of {args.steps})")
 

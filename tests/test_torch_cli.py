@@ -110,9 +110,11 @@ def test_cli_accepts_flags_without_effect(flag, tmp_path, capsys):
 
 
 def test_cli_scenes(capsys):
+    """`scenes` lists the JAX registry's 16 scenes."""
+    from cse168_raytracer_tpu.scenes.registry import SCENES as JAX_SCENES
     assert cli.main(["scenes"]) == 0
-    assert capsys.readouterr().out.split() == ["sphere", "sponza_proxy",
-                                               "test_sphere"]
+    names = capsys.readouterr().out.split()
+    assert names == sorted(JAX_SCENES) and len(names) == 16
 
 
 @pytest.mark.parametrize("extra", [

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: the wide-tree traversal (the card
 walk, and the per-ray kernel it replaced) with and without its in-kernel
 counters (K1-K4), the binary-tree traversal in its three modes (K5) and
-the block brute force (K6), each against its plain PyTorch version.
+the block brute force (K6), each against its plain PyTorch version; and
+the textured path on the card against the CPU (Worley's tie order, and a
+textured, bump-mapped mesh rendered through K1).
 
 These tests need an NVIDIA GPU and the CUDA toolkit; without a GPU they
 skip. They import neither jax nor the JAX package, so they run on a
@@ -320,3 +322,53 @@ def test_block_kernel_matches_plain_on_card(cuda):
     both = (wt < BIG) & hit
     assert float((wt < BIG).eq(hit).float().mean()) >= 0.999
     assert torch.equal(wt[both], t[both])
+
+
+def test_worley2_ids_card_match_cpu_on_a_tie(cuda):
+    """worley2 ranking every slot of its 9 cells (max_order 45), so the
+    masked slots, which all hold 999999.9, tie: the card's ids and deltas
+    equal the CPU's (lax.top_k's order, the lowest slot first), and F is
+    within two ulps (rtol 2.5e-7; the card's sqrt of a sum may round
+    apart from the CPU's, 572 of 184,320 values by one ulp, 9.5e-7 at
+    most, on an H100)."""
+    from cse168_raytracer_tpu_torch.core.noise import worley2
+    p = np.random.default_rng(0).uniform(-40, 40, (4096, 2)).astype(
+        np.float32)
+    f_card, d_card, i_card = worley2(torch.as_tensor(p, device=cuda), 45)
+    f, d, i = worley2(torch.as_tensor(p), 45)
+    assert (f > 2000).any()
+    assert torch.equal(i_card.cpu(), i)
+    torch.testing.assert_close(f_card.cpu(), f, rtol=2.5e-7, atol=0)
+    assert torch.equal(d_card.cpu(), d)
+
+
+def test_textured_scene_card_matches_cpu(cuda, tmp_path):
+    """chip_smoke.py phase 10(b)'s scene (sponza_proxy's mesh read back
+    from an OBJ, stone with its bump map, stem, cellular and cloud
+    materials, a glass sphere, an evaluated cloud environment) at 64x64
+    and the registered depth 10, card against CPU, by
+    tests/test_golden.py's bar on the tonemapped bytes: at least 99.9%
+    within +-2 and a mean |difference| of at most 0.05. The bump map's
+    central difference magnifies the ulps by which the card's pow and
+    exp may differ from the CPU's, so the bar is per pixel, not rtol
+    1e-5."""
+    from chip_smoke import byte_diff, textured_scene, write_proxy_obj
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.models.obj import load_obj
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    path = str(tmp_path / "proxy.obj")
+    write_proxy_obj(path)
+    mesh = load_obj(path)
+    cfg = RenderConfig(width=64, height=64)
+    hdrs = []
+    with torch.no_grad():
+        for device in (cuda, torch.device("cpu")):
+            scene, static, cam = textured_scene(mesh, device)
+            assert static.any_bump and static.any_refractive
+            hdrs.append(render_hdr(attach_accel(scene), static, cam,
+                                   cfg)[0].cpu())
+    assert torch.isfinite(hdrs[0]).all() and hdrs[0].max() > hdrs[0].min()
+    diff = byte_diff(*hdrs)
+    assert np.mean(diff <= 2) >= 0.999 and diff.mean() <= 0.05, (
+        np.mean(diff <= 2), diff.mean(), diff.max())

@@ -159,16 +159,10 @@ def test_numpy_sah_builder_matches():
         assert_bytes_equal(a, b, "numpy sah")
 
 
-@pytest.mark.parametrize("scene_name", ["sphere", "test_sphere",
-                                        "sponza_proxy"])
-def test_registry_scene_arrays(scene_name):
-    from cse168_raytracer_tpu.config import RenderConfig as JCfg
-    from cse168_raytracer_tpu.scenes import build as jbuild
-    from cse168_raytracer_tpu_torch.config import RenderConfig
-    from cse168_raytracer_tpu_torch.scenes import build
-    js, jst, jcam, _ = jbuild(scene_name, JCfg(width=16, height=16))
-    ts, tst, tcam, _ = build(scene_name, RenderConfig(width=16, height=16),
-                             device="cpu")
+def assert_scene_equal(js, jst, jcam, ts, tst, tcam):
+    """The port's scene, static facts and camera hold the JAX package's
+    arrays byte for byte (the camera's normalized view direction within
+    1e-6: torch's and XLA's rsqrt may differ by an ulp)."""
     assert_pack_equal(js.tris, ts.tris)
     for pool, fields in (("spheres", ("center", "radius", "material_id",
                                       "valid")),
@@ -187,6 +181,22 @@ def test_registry_scene_arrays(scene_name):
         assert_bytes_equal(np.asarray(getattr(js.env, f)),
                            getattr(ts.env, f).numpy(), f"env.{f}")
     assert (js.env.cloud_params is None) == (ts.env.cloud_params is None)
+    if js.env.cloud_params is not None:
+        assert_bytes_equal(np.asarray(js.env.cloud_params),
+                           ts.env.cloud_params.numpy(), "env.cloud_params")
+    assert js.env.quirk_cloud_env_black == ts.env.quirk_cloud_env_black
+    assert (js.env.image is None) == (ts.env.image is None)
+    assert len(js.images) == len(ts.images)
+    for a, b in zip(js.images, ts.images):
+        for f in ("image", "lowres", "max_intensity"):
+            assert_bytes_equal(np.asarray(getattr(a, f)),
+                               getattr(b, f).numpy(), f"image.{f}")
+    assert len(js.cellulars) == len(ts.cellulars)
+    for a, b in zip(js.cellulars, ts.cellulars):
+        assert a.halo == b.halo
+        for f in ("points", "valid"):
+            assert_bytes_equal(np.asarray(getattr(a, f)),
+                               getattr(b, f).numpy(), f"cellular.{f}")
     assert tuple(jst.texture_kinds) == tst.texture_kinds
     assert (jst.any_bump, jst.num_lights, jst.any_refractive,
             jst.any_reflective) == (tst.any_bump, tst.num_lights,
@@ -194,9 +204,23 @@ def test_registry_scene_arrays(scene_name):
     for f in ("eye", "up", "fov", "bg_color"):
         assert_bytes_equal(np.asarray(getattr(jcam, f)),
                            getattr(tcam, f).numpy(), f"camera.{f}")
-    # a normalized direction: torch's and XLA's rsqrt may differ by an ulp
     np.testing.assert_allclose(tcam.view_dir.numpy(),
                                np.asarray(jcam.view_dir), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("scene_name", [
+    "sphere", "test_sphere", "sponza_proxy", "refract_spheres",
+    "texture_plane", "cellular_plane", "spiral", "sponza"])
+def test_registry_scene_arrays(scene_name):
+    """Every asset-free registry scene, built by both packages."""
+    from cse168_raytracer_tpu.config import RenderConfig as JCfg
+    from cse168_raytracer_tpu.scenes import build as jbuild
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.scenes import build
+    js, jst, jcam, _ = jbuild(scene_name, JCfg(width=16, height=16))
+    ts, tst, tcam, _ = build(scene_name, RenderConfig(width=16, height=16),
+                             device="cpu")
+    assert_scene_equal(js, jst, jcam, ts, tst, tcam)
 
 
 def test_interop_round_trip():
