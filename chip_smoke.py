@@ -44,6 +44,20 @@ backward w.r.t. kd, and against the CPU's image at 64x64 by
 tests/test_golden.py's bar; (c) `cli render` of refract_spheres,
 texture_plane, cellular_plane, spiral and sponza (the substitute); (d)
 the K1/K2 launches of (a)-(c) and the peak device memory of (b).
+Phase 11 runs photon mapping at the size users run (200,000 global and
+200,000 caustic photons a light, samples 500, max_per_cell 32, up to
+1200 batches) on photon_box, a stand-in for photon_cornell (its camera
+and directional-area light, an open-front box of triangles, a glass
+sphere of 19,800 triangles): (a) build_photon_maps on the card; (b) the
+gather on 65,536 level-0 points, card against CPU (r'^2 bit for bit,
+irradiance within rtol 1e-5); (c) trace_photon_batch on 65,536 photons,
+card against CPU on one CPU generator's uniforms; (d) the 512² depth-10
+render forward, fwd+bwd w.r.t. a gain on the stored powers and w.r.t.
+kd, peak memory, launches, and the gather's device time against the
+traversal's (torch.profiler); (e) that render at 64², card against CPU
+by tests/test_golden.py's bar; (f) `cli render` with --photons,
+--caustic-photons, --stats and --visualize-photons through cli.render
+(built=), and the glassless box with --photons (K2's shadow rays).
 Each phase prints its own lines; any failure raises and exits non-zero.
 The second-to-last line is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it
@@ -53,6 +67,7 @@ fails at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -87,6 +102,20 @@ FOREST_CHUNK = 65_536
 TEXTURED_RES = 512   # phase 10's renders, at the registered trace depth
 TEXTURED_CPU_RES = 64  # phase 10(b)'s card-vs-CPU image
 TEXTURED_REPS = 3
+# phase 11: the photon path at the README's and tools/golden_tpu.py's size
+PHOTONS = 200_000          # global and caustic photons per light
+PHOTON_CFG = dict(photons_per_light=PHOTONS, caustic_photons_per_light=PHOTONS,
+                  photon_samples=500, photon_grid_max_per_cell=32,
+                  photon_max_batches=1200)
+PHOTON_RES = 512           # phase 11's renders, at trace depth 10
+PHOTON_CPU_RES = 64        # phase 11(e)'s card-vs-CPU image
+PHOTON_GATHER_POINTS = 65_536
+PHOTON_TRACE_N = 65_536
+PHOTON_REPS = 3
+SPHERE_RINGS = 71          # the glass sphere: 4 x 71 x 70 = 19,880 triangles
+# phase 11(c): card and CPU photons that both stored, at rtol/atol 1e-4
+TRACE_MASK_AGREE = 0.999
+TRACE_CLOSE = 0.98
 ASSET_FREE = ("refract_spheres", "texture_plane", "cellular_plane", "spiral",
               "sponza")
 
@@ -1720,6 +1749,542 @@ def phase_textured(device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: photon mapping
+# ---------------------------------------------------------------------------
+
+def quad(a, b, c, d, normal):
+    """Two triangles (a, b, c) and (a, c, d) of a planar quad with one
+    shading normal, in models/geometry's mesh-dict form."""
+    v = np.asarray([a, b, c, d], np.float32)
+    f = np.asarray([[0, 1, 2], [0, 2, 3]], np.int64)
+    return {"vertices": v, "normals": np.tile(np.float32(normal), (4, 1)),
+            "texcoords": np.zeros((0, 2), np.float32), "tri_vidx": f,
+            "tri_nidx": f, "tri_tidx": np.full((2, 3), -1, np.int64)}
+
+
+def uv_sphere(center, radius, rings):
+    """A tessellated sphere with smooth (vertex) normals: `rings` bands
+    of 2 * rings segments, 4 * rings * (rings - 1) triangles (one a
+    segment in the two polar bands, two elsewhere)."""
+    seg = 2 * rings
+    th = np.linspace(0, np.pi, rings + 1)
+    ph = np.linspace(0, 2 * np.pi, seg + 1)[:-1]
+    n = np.stack([np.sin(th)[:, None] * np.cos(ph)[None],
+                  np.cos(th)[:, None] * np.ones_like(ph)[None],
+                  np.sin(th)[:, None] * np.sin(ph)[None]], -1).reshape(-1, 3)
+    idx = np.arange((rings + 1) * seg).reshape(rings + 1, seg)
+    nxt = np.roll(idx, -1, axis=1)
+    tris = []
+    for i in range(rings):
+        a, b, c, d = idx[i], nxt[i], nxt[i + 1], idx[i + 1]
+        if i > 0:                     # no sliver at the top pole
+            tris.append(np.stack([a, b, c], 1))
+        if i < rings - 1:             # nor at the bottom
+            tris.append(np.stack([a, c, d], 1))
+    f = np.concatenate(tris).astype(np.int64)
+    v = (np.float64(center) + radius * n).astype(np.float32)
+    return {"vertices": v, "normals": n.astype(np.float32),
+            "texcoords": np.zeros((0, 2), np.float32), "tri_vidx": f,
+            "tri_nidx": f, "tri_tidx": np.full_like(f, -1)}
+
+
+def photon_box(device, glass=True):
+    """The procedural stand-in for photon_cornell (whose Cornell OBJs
+    come from the reference's assets): its camera and its
+    directional-area light (scenes/registry.py: radius 1.5 at (2.5, 4.5,
+    -1), aimed down, 50 W), an open-front box of triangles (white floor,
+    ceiling and back wall, red left wall, green right wall, kd as there)
+    and, with `glass`, a tessellated sphere of kd 0, kt 1, ior 1.5 (the
+    glass of tests/test_photon.py) under the light. photon_cornell's
+    water has kd (1, 1, 1), which sends every photon down the diffuse
+    branch, so its caustic map would store nothing."""
+    from cse168_raytracer_tpu_torch.models.geometry import pack_triangles
+    from cse168_raytracer_tpu_torch.models.lights import \
+        LIGHT_DIRECTIONAL_AREA
+    from cse168_raytracer_tpu_torch.models.materials import MaterialBuilder
+    from cse168_raytracer_tpu_torch.models.scene import make_scene
+    from cse168_raytracer_tpu_torch.render.camera import make_camera
+    mb = MaterialBuilder()
+    white, red, green = (mb.phong(kd=kd) for kd in
+                         ((1, 1, 1), (1, 0, 0), (0, 1, 0)))
+    x0, x1, y0, y1, z0, z1 = 0.0, 5.0, 0.0, 5.0, -5.0, 1.0
+    meshes = [
+        (quad((x0, y0, z1), (x1, y0, z1), (x1, y0, z0), (x0, y0, z0),
+              (0, 1, 0)), white),                              # floor
+        (quad((x0, y1, z0), (x1, y1, z0), (x1, y1, z1), (x0, y1, z1),
+              (0, -1, 0)), white),                             # ceiling
+        (quad((x0, y0, z0), (x1, y0, z0), (x1, y1, z0), (x0, y1, z0),
+              (0, 0, 1)), white),                              # back wall
+        (quad((x0, y0, z0), (x0, y1, z0), (x0, y1, z1), (x0, y0, z1),
+              (1, 0, 0)), red),                                # left
+        (quad((x1, y0, z1), (x1, y1, z1), (x1, y1, z0), (x1, y0, z0),
+              (-1, 0, 0)), green)]                             # right
+    if glass:
+        meshes.append((uv_sphere((2.5, 1.0, -1.0), 1.0, SPHERE_RINGS),
+                       mb.phong(kd=(0, 0, 0), kt=(1, 1, 1), ior=1.5)))
+    lights = [dict(kind=LIGHT_DIRECTIONAL_AREA, position=(2.5, 4.5, -1),
+                   normal=(0, -1, 0), radius=1.5, color=(1, 1, 1),
+                   wattage=50.0)]
+    scene, static = make_scene(tris=pack_triangles(meshes, device=device),
+                               materials=mb.build(device), lights=lights,
+                               device=device)
+    cam = make_camera(eye=(2.5, 3, 3), look_at=(2.5, 2.5, 0), fov=90,
+                      bg_color=(0, 0, 0.2), device=device)
+    return scene, static, cam
+
+
+def photon_scene(device, glass=True):
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    scene, static, cam = photon_box(device, glass)
+    return attach_accel(scene), static, cam
+
+
+def launches_since(wb, before):
+    """The wide-tree kernel's launches (K1, K2 and K3's two modes) since
+    the counts `before`."""
+    return {k: wb.LAUNCHES[k] - before[k] for k in wb.LAUNCHES}
+
+
+def phase_photon_build(device, card, scene, static):
+    """11(a): build_photon_maps on the card at the full configuration."""
+    import torch
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    from cse168_raytracer_tpu_torch.ops.photon import build_photon_maps
+    cfg = RenderConfig(**PHOTON_CFG)
+    before = dict(wb.LAUNCHES)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    maps, stats = build_photon_maps(scene, static, cfg, gen,
+                                    return_stats=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launches_since(wb, before)
+    batch = 65536 if device.type == "cuda" else 10000
+    batches = {n: st["emitted"] // batch for n, st in stats.items()}
+    log(f"[11a build] build_photon_maps {PHOTONS} + {PHOTONS} photons a "
+        f"light, samples {cfg.photon_samples}, max_per_cell "
+        f"{cfg.photon_grid_max_per_cell}, max_batches "
+        f"{cfg.photon_max_batches}: {secs:.3f} s, batches {batches}, "
+        f"wide-tree launches {launches}; card {card}")
+    for name, grid in (("global", maps.global_map),
+                       ("caustic", maps.caustic_map)):
+        st = stats[name]
+        log(f"[11a build] {name}: emitted {st['emitted']}, stored "
+            f"{st['stored']}, bounces {st['bounces']}, stored per level "
+            f"{st['stored_per_level']}; kept {grid.n_valid}, radius "
+            f"{float(grid.radius):.6g} (coarse {float(grid.coarse.radius):.6g})"
+            f", folded rows {int((grid.weight > 1).sum())}")
+        if grid.n_valid < PHOTONS:
+            log(f"[11a build] {name} map holds {grid.n_valid} photons, "
+                f"fewer than {PHOTONS}")
+    return maps, dict(s=secs, batches=batches, launches=launches,
+                      stats=stats)
+
+
+def diffuse_points(scene, static, cam, n_points, res=PHOTON_RES):
+    """The first n_points level-0 hits on diffuse materials of the
+    res x res render's primary rays, in block order, with their
+    normals."""
+    import torch
+    from cse168_raytracer_tpu_torch.models.materials import is_diffuse
+    from cse168_raytracer_tpu_torch.ops.shading import trace_closest
+    o, d = primary_rays(cam, res, res, scene.device)
+    hit, surf = trace_closest(scene, static, o, d)
+    lanes = torch.nonzero(hit.hit & is_diffuse(scene.materials,
+                                                surf.material_id))[:, 0]
+    if lanes.shape[0] < n_points:
+        raise AssertionError(f"only {lanes.shape[0]} diffuse primary hits")
+    lanes = lanes[:n_points]
+    return surf.p[lanes].contiguous(), surf.n[lanes].contiguous()
+
+
+def phase_photon_gather(card, maps, p, n):
+    """11(b): the gather on the card and on the CPU, same maps and
+    points: r'^2 and the level choice bit for bit, the irradiance within
+    rtol 1e-5. Returns the card's gather time by CUDA events."""
+    import torch
+    from cse168_raytracer_tpu_torch.core.vecmath import safe_normalize
+    from cse168_raytracer_tpu_torch.ops import photon as ph
+    cpu = torch.device("cpu")
+    maps_cpu = maps.to(cpu)
+    nu = safe_normalize(n)
+    out = {}
+    for name in ("global_map", "caustic_map"):
+        grid, grid_c = getattr(maps, name), getattr(maps_cpu, name)
+        chunk = ph.gather_chunk(grid, p.device)
+        t0 = time.perf_counter()
+        card_out = ph.gather_levels(grid, p, nu, grid.power,
+                                    grid.coarse.power, chunk)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_out = ph.gather_levels(grid_c, p.cpu(), nu.cpu(), grid_c.power,
+                                   grid_c.coarse.power,
+                                   ph.gather_chunk(grid_c, cpu))
+        cpu_s = time.perf_counter() - t0
+        irr, irr_c = card_out[0].cpu(), cpu_out[0]
+        for a, b, what in zip(card_out[1:], cpu_out[1:],
+                              ("fine r'^2", "coarse r'^2", "level choice")):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"11b {name}: {what} differs between "
+                                     "card and CPU")
+        if not torch.allclose(irr, irr_c, rtol=1e-5, atol=0.0):
+            raise AssertionError(f"11b {name}: irradiance differs")
+        rel = float(((irr - irr_c).abs() / irr_c.abs().clamp(min=1e-30))
+                    .max())
+        out[name] = card_s
+        log(f"[11b gather] {name}: {p.shape[0]} level-0 points, chunk "
+            f"{chunk}: card {card_s * 1e3:.3f} ms (host clock), CPU "
+            f"{cpu_s:.3f} s; r'^2 of both levels and the level choice equal "
+            f"bit for bit, irradiance max rel diff {rel:.3g} (bar 1e-5); "
+            f"coarse level used at {int(card_out[3].sum())} points, mean "
+            f"irradiance {float(irr.mean()):.6g}; card {card}")
+    est = ph.irradiance_estimate
+    out["ms"] = time_cuda(lambda: est(maps, p, n), PHOTON_REPS)
+    log(f"[11b gather] irradiance_estimate (both maps) on the "
+        f"{p.shape[0]} points: {out['ms']:.3f} ms (CUDA events, "
+        f"{PHOTON_REPS} runs after a warm-up); card {card}")
+    return out
+
+
+def phase_photon_trace(device, card, scene, static, cpu_scene, cpu_static):
+    """11(c): trace_photon_batch on the card and on the CPU with the same
+    uniforms, drawn from one CPU generator."""
+    import torch
+    from cse168_raytracer_tpu_torch.ops import photon as ph
+    out = {}
+    for caustic in (False, True):
+        gen = torch.Generator().manual_seed(SEED + int(caustic))
+        u = ph.draw_photon_uniforms(gen, PHOTON_TRACE_N, 5, False)
+        u_card = ph.PhotonUniforms(**{
+            f.name: None if getattr(u, f.name) is None
+            else getattr(u, f.name).to(device) for f in dataclasses.fields(u)})
+        t0 = time.perf_counter()
+        a = ph.trace_photon_batch(scene, static, 0, caustic, False, u_card)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = ph.trace_photon_batch(cpu_scene, cpu_static, 0, caustic, False,
+                                  u)
+        cpu_s = time.perf_counter() - t0
+        am, bm = a.mask.cpu(), b.mask
+        agree = float((am == bm).float().mean())
+        both = am & bm
+        close = {}
+        for f in ("pos", "dir", "power"):
+            x, y = getattr(a, f).cpu()[both], getattr(b, f)[both]
+            ok = torch.isclose(x, y, rtol=1e-4, atol=1e-4).all(-1)
+            close[f] = float(ok.float().mean())
+        dbounce = (a.bounces.cpu() - b.bounces).abs().max()
+        name = "caustic" if caustic else "global"
+        log(f"[11c trace] {name}: {PHOTON_TRACE_N} photons x 6 levels, card "
+            f"{card_s:.3f} s, CPU {cpu_s:.3f} s; stored masks agree on "
+            f"{agree * 100:.4f}% of slots ({int(am.sum())} card, "
+            f"{int(bm.sum())} CPU stored); of {int(both.sum())} slots both "
+            f"stored, within rtol/atol 1e-4: pos {close['pos'] * 100:.3f}%, "
+            f"dir {close['dir'] * 100:.3f}%, power "
+            f"{close['power'] * 100:.3f}%; bounces differ by at most "
+            f"{int(dbounce)}; card {card}")
+        if agree < TRACE_MASK_AGREE or min(close.values()) < TRACE_CLOSE:
+            raise AssertionError(f"11c {name}: card and CPU photons disagree")
+        out[name] = dict(agree=agree, close=close, card_s=card_s,
+                         cpu_s=cpu_s)
+    return out
+
+
+def gain_step(scene, static, cam, cfg):
+    """sum(hdr) and its gradient w.r.t. a per-channel gain on both maps'
+    stored (fine-level) powers."""
+    import torch
+    gain = torch.ones(3, device=scene.device, requires_grad=True)
+    pm = scene.photons
+    maps = pm.replace(**{n: getattr(pm, n).replace(
+        power=getattr(pm, n).power * gain[None, :])
+        for n in ("global_map", "caustic_map")})
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    hdr, _ = render_hdr(scene.replace(photons=maps), static, cam, cfg)
+    hdr.sum().backward()
+    return hdr.detach(), gain.grad
+
+
+def device_split(events, mark):
+    """Device time of a traced run, from torch.profiler's events: the
+    kernels (each once, by name and time range), their summed and their
+    union ("busy") time, the union of the kernels inside the device-side
+    ranges of the record_function `mark`, and that of the wide-tree
+    walk's kernels. A record_function range shows on the device as a
+    user annotation spanning the kernels launched inside it; it is a
+    window, not work, so it counts in no kernel time. Kernels run in
+    order on one stream here, so those inside a mark's window are the
+    mark's own. Times in ms."""
+    import torch
+    from cse168_raytracer_tpu_torch.profile_step import _union_us
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels, windows = set(), []
+    for e in events:
+        if e.device_type != cuda:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if getattr(e, "is_user_annotation", False) or e.name == mark:
+            if e.name == mark:
+                windows.append(span)
+            continue
+        kernels.add((e.name,) + span)
+
+    def inside(s, e):
+        return [(max(s, ws), min(e, we)) for ws, we in windows
+                if min(e, we) > max(s, ws)]
+
+    spans = [(s, e) for _, s, e in kernels]
+    gather = [c for s, e in spans for c in inside(s, e)]
+    walk = [(s, e) for n, s, e in kernels if "traverse" in n]
+    return dict(kernels=len(kernels),
+                kernel_ms=sum(e - s for s, e in spans) / 1e3,
+                busy_ms=_union_us(spans) / 1e3,
+                gather_ms=_union_us(gather) / 1e3,
+                gather_ranges=len(windows),
+                traverse_ms=_union_us(walk) / 1e3)
+
+
+def phase_photon_render(device, card, scene, static, cam, maps, p, n):
+    """11(d): the photon-mapped render at PHOTON_RES, depth 10: forward,
+    fwd+bwd w.r.t. the stored-power gain and w.r.t. kd, peak memory,
+    launches, and the gather's device time against K1/K2's."""
+    import torch
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.ops import photon as ph
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    from cse168_raytracer_tpu_torch.render import integrator
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    cfg = RenderConfig(width=PHOTON_RES, height=PHOTON_RES, trace_depth=10)
+    lit = scene.replace(photons=maps)
+    out = {}
+    before = dict(wb.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats(device)
+    with torch.no_grad():
+        hdr, stats = render_hdr(lit, static, cam, cfg)
+        base = render_hdr(scene, static, cam, cfg)[0]
+        out["fwd_ms"] = time_cuda(lambda: render_hdr(lit, static, cam, cfg),
+                                  PHOTON_REPS, warm=False)
+        out["plain_fwd_ms"] = time_cuda(
+            lambda: render_hdr(scene, static, cam, cfg), PHOTON_REPS,
+            warm=False)
+    out["fwd_launches"] = launches_since(wb, before)
+    if not bool(torch.isfinite(hdr).all()) or not bool(
+            (hdr >= base - 1e-6).all()) or not float(hdr.sum()) > float(
+            base.sum()):
+        raise AssertionError("11d: the photon maps do not brighten the "
+                             "render, or a NaN")
+    rays = (int(stats.primary_rays) + int(stats.secondary_rays)
+            + int(stats.shadow_rays))
+    gain_step(lit, static, cam, cfg)
+    torch.cuda.synchronize()
+    out["gain_ms"] = time_cuda(lambda: gain_step(lit, static, cam, cfg),
+                               PHOTON_REPS - 1, warm=False)
+    _, g = gain_step(lit, static, cam, cfg)
+    if not bool(torch.isfinite(g).all()) or not bool((g.abs() > 0).all()):
+        raise AssertionError(f"11d: stored-power gain gradient {g}")
+    _, kd_grad, _, out["kd_ms"], _ = timed_steps(lit, static, cam, cfg,
+                                                 PHOTON_REPS - 1)
+    if not bool(torch.isfinite(kd_grad).all()):
+        raise AssertionError("11d: kd gradient non-finite")
+    out["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
+    out["launches"] = launches_since(wb, before)
+    log(f"[11d render] {PHOTON_RES}x{PHOTON_RES}, depth 10, both maps: "
+        f"forward {out['fwd_ms']:.3f} ms (without the maps "
+        f"{out['plain_fwd_ms']:.3f} ms; CUDA events, {PHOTON_REPS} runs); "
+        f"fwd+bwd w.r.t. the stored-power gain {out['gain_ms']:.3f} ms "
+        f"(gradient {g.tolist()}), w.r.t. kd {out['kd_ms']:.3f} ms; "
+        f"{rays} rays; peak device memory {out['peak_mib']:.1f} MiB; "
+        f"wide-tree launches of (d)'s {2 * PHOTON_REPS + 2} forwards "
+        f"{out['fwd_launches']}, of all (d)'s renders {out['launches']}; "
+        f"image mean {float(hdr.mean()):.6g} (without "
+        f"the maps {float(base.mean()):.6g}); card {card}")
+
+    # device time of the gather against the traversal, one forward
+    real = integrator.irradiance_estimate
+
+    def marked(*a):
+        with torch.profiler.record_function("photon_gather"):
+            return real(*a)
+
+    integrator.irradiance_estimate = marked
+    try:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            render_hdr(lit, static, cam, cfg)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+    finally:
+        integrator.irradiance_estimate = real
+    split = device_split(prof.events(), "photon_gather")
+    out["device"] = dict(split, wall_ms=wall / 1e3)
+    with_maps = out["fwd_ms"] - out["plain_fwd_ms"]
+    log(f"[11d render] CUDA events: the forward with the maps less the "
+        f"forward without them {with_maps:.3f} ms "
+        f"({100 * with_maps / out['fwd_ms']:.1f}% of the forward)")
+    if split["busy_ms"] > 0:
+        busy = split["busy_ms"]
+        log(f"[11d render] torch.profiler, one forward: wall "
+            f"{wall / 1e3:.3f} ms, {split['kernels']} device kernels, "
+            f"{split['kernel_ms']:.3f} ms of kernel time, busy "
+            f"{busy:.3f} ms ({100 * busy * 1e3 / wall:.1f}% of wall); the "
+            f"gather's kernels {split['gather_ms']:.3f} ms "
+            f"({100 * split['gather_ms'] / busy:.1f}% of busy, "
+            f"{split['gather_ranges']} ranges on the device), K1/K2 "
+            f"{split['traverse_ms']:.3f} ms "
+            f"({100 * split['traverse_ms'] / busy:.1f}%)")
+        if split["kernel_ms"] > 1.01 * busy:
+            log("[11d render] device kernels overlap: the gather's window "
+                "may hold kernels of other work")
+        if split["gather_ranges"] == 0:
+            log("[11d render] the profiler left no device-side range of "
+                "the gather: its device share is not measured")
+    else:
+        log("[11d render] torch.profiler recorded no device time: the "
+            "gather's device share is not measured")
+    # the same split by CUDA events: the gather alone on (b)'s points,
+    # and one K1 call on the primary rays
+    o, d = primary_rays(cam, PHOTON_RES, PHOTON_RES, device)
+    from cse168_raytracer_tpu_torch.ops.shading import trace_closest
+    out["k1_ms"] = time_cuda(lambda: trace_closest(lit, static, o, d),
+                             PHOTON_REPS)
+    out["gather_ms"] = time_cuda(
+        lambda: ph.irradiance_estimate(maps, p, n), PHOTON_REPS)
+    log(f"[11d render] CUDA events: trace_closest on the "
+        f"{o.shape[0]} primary rays {out['k1_ms']:.3f} ms, "
+        f"irradiance_estimate on (b)'s {p.shape[0]} points "
+        f"{out['gather_ms']:.3f} ms")
+    return out
+
+
+def phase_photon_cpu(card, scene, static, cam, maps, cpu_scene, cpu_static,
+                     cpu_cam):
+    """11(e): the same render at PHOTON_CPU_RES on the card and on the
+    CPU with the same maps, by tests/test_golden.py's bar."""
+    import torch
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    small = RenderConfig(width=PHOTON_CPU_RES, height=PHOTON_CPU_RES,
+                         trace_depth=10)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        card_hdr = render_hdr(scene.replace(photons=maps), static, cam,
+                              small)[0]
+        cpu_hdr = render_hdr(cpu_scene.replace(photons=maps.to("cpu")),
+                             cpu_static, cpu_cam, small)[0]
+    diff = byte_diff(card_hdr, cpu_hdr)
+    within2, mean = float(np.mean(diff <= 2)), float(diff.mean())
+    log(f"[11e card vs CPU] {PHOTON_CPU_RES}x{PHOTON_CPU_RES}, depth 10, "
+        f"both maps: {within2 * 100:.3f}% of bytes within +-2, mean |diff| "
+        f"{mean:.4f}, {int((diff > 1).sum())} of {diff.size} bytes outside "
+        f"+-1, max {int(diff.max())} ({time.perf_counter() - t0:.1f} s); "
+        f"card {card}")
+    if within2 < 0.999 or mean > 0.05:
+        raise AssertionError("11e: card and CPU photon renders disagree")
+    return dict(within2=within2, mean=mean)
+
+
+def read_ppm(path):
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"P6":
+            raise AssertionError(f"{path}: not a binary PPM")
+        w, h = map(int, f.readline().split())
+        f.readline()
+        return np.frombuffer(f.read(), np.uint8).reshape(h, w, 3)
+
+
+def phase_photon_cli(card, device):
+    """11(f): `cli render` with the photon options through cli.render on
+    the stand-in (built=), and its glassless box with --photons alone,
+    whose shadow rays take K2 (with --stats every traversal of the
+    render takes K3)."""
+    import io
+    from cse168_raytracer_tpu_torch import cli
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for glass in (True, False):
+            label = "photon box" + ("" if glass else " without glass")
+            ov = os.path.join(tmp, "overlay.ppm")
+            argv = ["render", "--scene", "photon_box", "--width",
+                    str(PHOTON_RES), "--height", str(PHOTON_RES), "--photons",
+                    str(PHOTONS), "--out", os.path.join(tmp, "out.png")]
+            if glass:
+                argv += ["--caustic-photons", str(PHOTONS), "--stats",
+                         "--visualize-photons", ov]
+            log(f"[11f cli] {label}: cli.render(parse_args({argv[2:-2]}), "
+                "built=...)")
+            before = dict(wb.LAUNCHES)
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                res = cli.render(cli.parser().parse_args(argv),
+                                 built=photon_box(device, glass))
+            log(err.getvalue().rstrip())
+            text = err.getvalue()
+            need = ["[photons] traced in"]
+            if glass:
+                need += ["[stats] photons global:", "[stats] photons caustic:",
+                         "[viz] wrote"]
+            for line in need:
+                if line not in text:
+                    raise AssertionError(f"11f {label}: no `{line}` line")
+            launches = launches_since(wb, before)
+            out["glass" if glass else "plain"] = dict(
+                ms=res["steady_s"] * 1e3, launches=launches)
+            log(f"[11f cli] {label}: {res['steady_s'] * 1e3:.3f} ms a render "
+                f"(second run), {res['rays']} rays, wide-tree launches "
+                f"{launches}; card {card}")
+            if glass:
+                img = read_ppm(ov)
+                green = int(((img[..., 1] == 255) & (img[..., 0] == 40)).sum())
+                red = int(((img[..., 0] == 255) & (img[..., 1] == 40)).sum())
+                log(f"[11f cli] overlay: {green} green and {red} red pixels")
+                if green == 0 or red == 0:
+                    raise AssertionError("11f: the overlay lacks green or "
+                                         "red photons")
+            elif launches["any"] < 1:
+                raise AssertionError("11f: the glassless box ran no K2")
+    return out
+
+
+def phase_photons(device, card):
+    """Phase 11 (a)-(f): the photon path at the size users run."""
+    import torch
+    t_phase = time.perf_counter()
+    scene, static, cam = photon_scene(device)
+    log(f"[11 photons] stand-in for photon_cornell: {scene.tris.n_valid} "
+        f"triangles (the box's 10 and a glass sphere's "
+        f"{scene.tris.n_valid - 10}), W={scene.accel.width} tree")
+    maps, build = phase_photon_build(device, card, scene, static)
+    p, n = diffuse_points(scene, static, cam, PHOTON_GATHER_POINTS)
+    gather = phase_photon_gather(card, maps, p, n)
+    cpu = torch.device("cpu")
+    cpu_scene, cpu_static, cpu_cam = photon_scene(cpu)
+    trace = phase_photon_trace(device, card, scene, static, cpu_scene,
+                               cpu_static)
+    render = phase_photon_render(device, card, scene, static, cam, maps, p, n)
+    match = phase_photon_cpu(card, scene, static, cam, maps, cpu_scene,
+                             cpu_static, cpu_cam)
+    del scene, cpu_scene, maps
+    cli_runs = phase_photon_cli(card, device)
+    # the photon path's launches: the map build, the renders and the
+    # command line (not the comparisons and timings of (b), (c), (e))
+    launches = {k: build["launches"][k] + render["launches"][k] + sum(
+        r["launches"][k] for r in cli_runs.values())
+        for k in build["launches"]}
+    log(f"[11 photons] wide-tree launches on the photon path: (a) "
+        f"{build['launches']}, (d) {render['launches']}, (f) "
+        f"{ {n: r['launches'] for n, r in cli_runs.items()} }; total "
+        f"{launches}; phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(build=build, gather=gather, trace=trace, render=render,
+                match=match, cli=cli_runs, launches=launches)
+
+
 def main():
     device, card = phase_device()
     build_s, ptxas = phase_build()
@@ -1736,6 +2301,7 @@ def main():
     cli_runs, cli_launches = phase_cli(device, card)
     steps, k5, k5_stats_launches, _, k4 = phase_kinds(device, sponza_rays)
     textured = phase_textured(device, card)
+    photons = phase_photons(device, card)
     import torch
     src = "cse168_raytracer_tpu_torch/csrc/traverse_wide.cu"
     replaces = "cse168_raytracer_tpu/ops/pallas_bvh.py:1056"
@@ -1754,21 +2320,25 @@ def main():
         {"name": "traverse_wide closest+attr (W=4)", "route": "cuda",
          "source": src, "replaces": replaces,
          "launches": (main_run["launches"]["closest"]
-                      + textured["launches"]["closest"]),
+                      + textured["launches"]["closest"]
+                      + photons["launches"]["closest"]),
          "max_abs_err": errs["closest"], "library_ms": None,
          **{k: timing["closest"][k] for k in wkeys},
          **regs("W=4 closest")},
         {"name": "traverse_wide any-hit (W=4)", "route": "cuda",
          "source": src, "replaces": replaces,
          "launches": (main_run["launches"]["any"]
-                      + textured["launches"]["any"]),
+                      + textured["launches"]["any"]
+                      + photons["launches"]["any"]),
          "max_abs_err": errs["any"], "library_ms": None,
          **{k: timing["any"][k] for k in wkeys}, **regs("W=4 any")},
         {"name": "traverse_wide with counters, closest+attr and any-hit "
                  "(K3)", "route": "cuda", "source": src,
          "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:1020",
          "launches": (cli_launches["stats_closest"]
-                      + cli_launches["stats_any"]),
+                      + cli_launches["stats_any"]
+                      + photons["launches"]["stats_closest"]
+                      + photons["launches"]["stats_any"]),
          "max_abs_err": errs["stats"], "library_ms": None,
          **timing["stats"], **regs("W=4 closest stats", "W=4 any stats")},
         {"name": "traverse_wide W=8 tree (K4), timed closest+attr",
@@ -1817,7 +2387,10 @@ def main():
         f"pallas_sah step {steps['pallas_sah step']['ms']:.3f} ms, pallas "
         f"step {steps['pallas step']['ms']:.3f} ms (lit); textured mesh "
         f"fwd {textured['b']['fwd_ms']:.3f} ms, fwd+bwd "
-        f"{textured['b']['step_ms']:.3f} ms; card {card}")
+        f"{textured['b']['step_ms']:.3f} ms; photon maps built in "
+        f"{photons['build']['s']:.3f} s, photon render fwd "
+        f"{photons['render']['fwd_ms']:.3f} ms, fwd+bwd (gain) "
+        f"{photons['render']['gain_ms']:.3f} ms; card {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,9 @@ Usage:
         --path-tracing --spp 16 --depth 4 --out test_sphere.png
     python -m cse168_raytracer_tpu_torch.cli render --scene sphere \
         --device cpu --width 64 --height 64 --out sphere.ppm
+    python -m cse168_raytracer_tpu_torch.cli render --scene photon_cornell \
+        --photons 200000 --caustic-photons 200000 --stats \
+        --visualize-photons photons.png --out cornell.png
     python -m cse168_raytracer_tpu_torch.cli scenes      # list scenes
 
 It renders on the card (--device cuda, the default) unless --device cpu
@@ -18,6 +21,13 @@ prints [scene], [accel], [render], [stats] and [out] lines on stderr, as
 the JAX package's command line does; --stats adds the ray counts and the
 traversal's in-kernel counters, which in the port are each ray's own
 walk (the JAX package bills a tile's visits to each of its rays).
+--photons N builds the photon maps first (N global photons per
+directional-area light, --caustic-photons M caustic ones; the
+generator is seeded with --seed + 7) and prints a [photons] line, and
+with --stats or --visualize-photons each map's emitted, stored and
+bounce counts; --visualize-photons PATH writes the stored photons over
+the frame (global green, caustic red); --no-photon-map renders without
+the maps.
 Options of the JAX command line that the port does not have yet exit
 with status 2 and name their ROADMAP item.
 """
@@ -31,9 +41,6 @@ import time
 # options and commands of the JAX command line not ported yet, with the
 # ROADMAP item that brings them
 NOT_PORTED = {
-    "photons": "photon mapping (ROADMAP item A22)",
-    "caustic_photons": "photon mapping (ROADMAP item A22)",
-    "visualize_photons": "the photon overlay (ROADMAP item A22)",
     "sharded": "multi-device rendering (ROADMAP item A24)",
     "coordinator": "multi-host rendering (ROADMAP item A24)",
     "num_processes": "multi-host rendering (ROADMAP item A24)",
@@ -60,12 +67,11 @@ def _cmd_scenes(_args) -> int:
 
 
 def _unported(args) -> list[str]:
-    """The unported options the command line set (a photon count of 0
-    asks for no photon map, which is what the port renders)."""
+    """The unported options the command line set."""
     bad = []
     for name, what in NOT_PORTED.items():
         value = getattr(args, name)
-        if value not in (None, False, 0):
+        if value not in (None, False):
             bad.append(f"--{name.replace('_', '-')}: {what}")
     return bad
 
@@ -73,8 +79,9 @@ def _unported(args) -> list[str]:
 def render(args, built=None) -> dict:
     """The `render` command on parsed arguments: build args.scene (or
     take `built`, that scene's (Scene, SceneStatic, Camera) as
-    scenes.build gives them), render it twice, write args.out. Returns
-    the HDR image, the RenderStats and the timings."""
+    scenes.build gives them), build its photon maps when asked, render
+    it twice, write args.out (and the photon overlay). Returns the HDR
+    image, the RenderStats, the timings and the photon counts."""
     import torch
 
     from cse168_raytracer_tpu_torch.config import (RenderConfig,
@@ -92,6 +99,8 @@ def render(args, built=None) -> dict:
         trace_samples=args.spp, path_tracing=args.path_tracing,
         dof=args.dof, disable_shadows=args.no_shadows,
         light_samples=args.light_samples, row_tile=args.row_tile,
+        photons_per_light=args.photons,
+        caustic_photons_per_light=args.caustic_photons,
         collect_stats=args.stats, seed=args.seed)
 
     t0 = time.perf_counter()
@@ -111,6 +120,24 @@ def render(args, built=None) -> dict:
                 f"W={scene.accel.width}, {scene.accel.n_nodes} nodes, "
                 f"{scene.accel.n_leaves} leaves")
         _log(f"[accel] built in {time.perf_counter() - t0:.2f}s ({tree})")
+    photon_stats = {}
+    if cfg.photons_per_light > 0 and not args.no_photon_map:
+        from cse168_raytracer_tpu_torch.ops.photon import build_photon_maps
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(cfg.seed + 7)
+        photons, photon_stats = build_photon_maps(scene, static, cfg, gen,
+                                                  return_stats=True)
+        scene = scene.replace(photons=photons)
+        sync()
+        _log(f"[photons] traced in {time.perf_counter() - t0:.2f}s")
+        if args.stats or args.visualize_photons:
+            for name, st in photon_stats.items():
+                lvl = st.get("stored_per_level")
+                lvl_s = (" per-level=" + "/".join(map(str, lvl))
+                         if lvl else "")
+                _log(f"[stats] photons {name}: emitted={st['emitted']} "
+                     f"stored={st['stored']} bounces={st['bounces']}"
+                     f"{lvl_s}")
 
     times = []
     with torch.no_grad():
@@ -144,8 +171,21 @@ def render(args, built=None) -> dict:
     img = to_bytes(tonemap(hdr, args.tonemap)).cpu().numpy()
     write_image(args.out, img)
     _log(f"[out] wrote {args.out}")
+    if args.visualize_photons:
+        # Scene.cpp:405-409,586-591: the stored photons over the frame
+        if scene.photons is None:
+            _log("[viz] no photon maps built (use --photons N)")
+        else:
+            from cse168_raytracer_tpu_torch.render.photon_viz import \
+                photon_overlay
+            write_image(args.visualize_photons,
+                        photon_overlay(img, cam, scene.photons, cfg.width,
+                                       cfg.height))
+            _log(f"[viz] wrote {args.visualize_photons} (global=green, "
+                 "caustic=red)")
     return dict(hdr=hdr, stats=stats, first_s=times[0], steady_s=times[1],
-                rays=n_rays, samples=samples, device=device)
+                rays=n_rays, samples=samples, device=device,
+                photons=scene.photons, photon_stats=photon_stats)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -183,9 +223,14 @@ def parser() -> argparse.ArgumentParser:
     r.add_argument("--bench", action="store_true",
                    help="time a second steady-state render; the port "
                         "always does, so this changes nothing")
+    r.add_argument("--photons", type=int, default=0,
+                   help="photons per light (0 disables photon mapping)")
+    r.add_argument("--caustic-photons", type=int, default=0)
     r.add_argument("--no-photon-map", action="store_true",
-                   help="render without a photon map; without --photons "
-                        "there is none, so this changes nothing")
+                   help="render without the photon maps")
+    r.add_argument("--visualize-photons", default=None, metavar="PATH",
+                   help="write a photon-overlay image "
+                        "(-DVISUALIZE_PHOTON_MAP analog)")
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--tonemap", choices=("sigmoid", "normalized", "none"),
                    default="sigmoid",
@@ -196,8 +241,6 @@ def parser() -> argparse.ArgumentParser:
         flag, kw = "--" + name.replace("_", "-"), {"help": f"not ported: {what}"}
         if name in ("sharded", "progressive"):
             kw["action"] = "store_true"
-        elif name in ("photons", "caustic_photons"):
-            kw["type"] = int      # 0: no photon map, as the port renders
         r.add_argument(flag, **kw)
     for name, what in NOT_PORTED_COMMANDS.items():
         sub.add_parser(name, help=f"not ported: {what}")

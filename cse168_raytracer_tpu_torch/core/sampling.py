@@ -1,6 +1,6 @@
 """Sampling transforms as functions of explicit uniforms.
 
-Counterpart of cse168_raytracer_tpu/core/sampling.py:28-103. Each
+Counterpart of cse168_raytracer_tpu/core/sampling.py:28-110. Each
 sampler is split in two:
 - a pure function of uniforms `u` in [0, 1) (the last axis holds the
   two numbers of one draw), which tests feed the very numbers that
@@ -16,7 +16,10 @@ Transforms (Ray.h:109-165, Utility.h:53-95, SquareLight.h:23-39):
   so the power stays differentiable, azimuth 2 pi u1 (Ray.h:152);
 - uniform_sphere, uniform_hemisphere and uniform_disc by inverse CDF
   in place of the reference's rejection loops;
-- stratified_grid_jitter: n_side^2 jittered cells of [0, 1)^2.
+- stratified_grid_jitter: n_side^2 jittered cells of [0, 1)^2;
+- cosine_hemisphere_about (the direction alone, SquareLight.h:41-48)
+  and sphere_surface_to_dir (a uniform direction in n's frame), for
+  photon emission.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from cse168_raytracer_tpu_torch.config import PI
-from cse168_raytracer_tpu_torch.core.vecmath import align_hemisphere, dot
+from cse168_raytracer_tpu_torch.core.vecmath import (align_hemisphere, dot,
+                                                     onb, safe_normalize)
 
 
 def uniform(gen: torch.Generator, shape, device=None) -> torch.Tensor:
@@ -84,6 +88,21 @@ def stratified_grid_jitter(u: torch.Tensor, n_side: int) -> torch.Tensor:
     return ((ij + u) / n_side).reshape(n_side * n_side, 2)
 
 
+def cosine_hemisphere_about(u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """cosine_hemisphere's direction alone (a square light's photon
+    emission, SquareLight.h:41-48, takes the same asin(sqrt) draw)."""
+    return cosine_hemisphere(u, n)[0]
+
+
+def sphere_surface_to_dir(u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """A uniform sphere direction expressed in the tangent frame of the
+    unit normal n; u (..., 2)."""
+    t1, t2 = onb(n)
+    d = uniform_sphere(u)
+    return safe_normalize(d[..., 0:1] * t1 + d[..., 1:2] * t2
+                          + d[..., 2:3] * n)
+
+
 def draw_cosine_hemisphere(gen: torch.Generator, n: torch.Tensor):
     return cosine_hemisphere(uniform(gen, n.shape[:-1] + (2,), n.device), n)
 
@@ -104,6 +123,16 @@ def draw_uniform_hemisphere(gen: torch.Generator, n: torch.Tensor):
 
 def draw_uniform_disc(gen: torch.Generator, radius, shape, device=None):
     return uniform_disc(uniform(gen, tuple(shape) + (2,), device), radius)
+
+
+def draw_cosine_hemisphere_about(gen: torch.Generator, n: torch.Tensor):
+    return cosine_hemisphere_about(
+        uniform(gen, n.shape[:-1] + (2,), n.device), n)
+
+
+def draw_sphere_surface_to_dir(gen: torch.Generator, n: torch.Tensor):
+    return sphere_surface_to_dir(
+        uniform(gen, n.shape[:-1] + (2,), n.device), n)
 
 
 def draw_stratified_grid_jitter(gen: torch.Generator, n_side: int,

@@ -23,6 +23,7 @@ from cse168_raytracer_tpu_torch.models.scene import Scene, SceneStatic
 from cse168_raytracer_tpu_torch.models.textures import (CellularTexture,
                                                         Environment,
                                                         ImageTexture)
+from cse168_raytracer_tpu_torch.ops.photon import PhotonGrid, PhotonMaps
 from cse168_raytracer_tpu_torch.render.camera import (Camera,
                                                       camera_from_arrays)
 
@@ -45,12 +46,12 @@ def _image(tex, device) -> ImageTexture:
 def scene_from_numpy(scene, static, device=None):
     """(Scene, SceneStatic) of the port from the JAX package's scene and
     static facts with numpy leaves: geometry, materials, lights, the
-    environment (its image map too), image and cellular textures.
-    Photon maps and bilinear patches are not ported yet and raise."""
+    environment (its image map too), image and cellular textures, and
+    the photon maps (both grids and their coarse levels, every field
+    as written). Bilinear patches are not ported yet and raise."""
     device = resolve_device(device)
-    for name in ("photons", "blpatches"):
-        if getattr(scene, name, None) is not None:
-            raise NotImplementedError(f"scene.{name} is not ported yet")
+    if getattr(scene, "blpatches", None) is not None:
+        raise NotImplementedError("scene.blpatches is not ported yet")
 
     tp = scene.tris
     pack = TrianglePack(
@@ -83,16 +84,37 @@ def scene_from_numpy(scene, static, device=None):
     cellulars = tuple(
         CellularTexture(points=_t(c.points, device), valid=_t(c.valid, device),
                         halo=int(c.halo)) for c in scene.cellulars)
+    photons = None
+    if getattr(scene, "photons", None) is not None:
+        photons = PhotonMaps(
+            global_map=photon_grid_from_numpy(scene.photons.global_map,
+                                              device),
+            caustic_map=photon_grid_from_numpy(scene.photons.caustic_map,
+                                               device))
     port_scene = Scene(tris=pack, spheres=spheres, planes=planes,
                        materials=materials, lights=lights, env=environment,
                        images=tuple(_image(i, device) for i in scene.images),
-                       cellulars=cellulars)
+                       cellulars=cellulars, photons=photons)
     port_static = SceneStatic(
         texture_kinds=tuple(int(k) for k in static.texture_kinds),
         any_bump=bool(static.any_bump), num_lights=int(static.num_lights),
         any_refractive=bool(static.any_refractive),
         any_reflective=bool(static.any_reflective))
     return port_scene, port_static
+
+
+def photon_grid_from_numpy(grid, device=None):
+    """The port's PhotonGrid (or None) from the JAX package's, numpy
+    leaves, its coarse level too."""
+    if grid is None:
+        return None
+    device = resolve_device(device)
+    return PhotonGrid(
+        **_fields(grid, ("pos", "power", "dir", "weight", "cell_hash",
+                         "radius"), device),
+        n_valid=int(np.asarray(grid.n_valid)), table_size=int(grid.table_size),
+        max_per_cell=int(grid.max_per_cell), knn=int(grid.knn),
+        coarse=photon_grid_from_numpy(grid.coarse, device))
 
 
 def camera_from_numpy(cam, device=None) -> Camera:

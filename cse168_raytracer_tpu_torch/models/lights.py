@@ -1,6 +1,7 @@
 """Light table, light origins and next-event-estimation geometry.
 
-Counterpart of cse168_raytracer_tpu/models/lights.py:51-176:
+Counterpart of cse168_raytracer_tpu/models/lights.py:51-176, with
+photon emission directions (`sample_photon_direction`, lines 114-124):
 - LIGHT_POINT (PointLight.h:8-63): the origin is the position; NEE
   falloff 1/(4 pi^2 r^2) (Phong.cpp:140);
 - LIGHT_SQUARE (SquareLight.h:23-39): the origin is a jittered point in
@@ -11,10 +12,9 @@ Counterpart of cse168_raytracer_tpu/models/lights.py:51-176:
   shading point lit only inside the beam of the disc.
 The kind of each light is known on the host (`LightTable.kinds`), so
 each call computes its own kind's branch where the JAX package selects
-among all three. Origins are functions of explicit uniforms (see
-core/sampling.py); the `draw_*` wrappers take them from a generator.
-Photon emission directions (`sample_photon_direction`) come with the
-photon slice (ROADMAP item A22).
+among all three. Origins and photon directions are functions of
+explicit uniforms (see core/sampling.py); the `draw_*` wrappers take
+them from a generator.
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ import numpy as np
 import torch
 
 from cse168_raytracer_tpu_torch.config import PI, resolve_device
-from cse168_raytracer_tpu_torch.core.sampling import uniform, uniform_disc
+from cse168_raytracer_tpu_torch.core.sampling import (cosine_hemisphere_about,
+                                                      uniform, uniform_disc,
+                                                      uniform_sphere)
 from cse168_raytracer_tpu_torch.core.vecmath import dot, onb
 
 LIGHT_POINT = 0
@@ -111,6 +113,32 @@ def sample_origin(lt: LightTable, li: int, u: torch.Tensor,
     else:
         raise ValueError(f"unknown light kind {kind}")
     return pos + uv[..., 0:1] * t1 + uv[..., 1:2] * t2
+
+
+def sample_photon_direction(lt: LightTable, li: int,
+                            u: torch.Tensor) -> torch.Tensor:
+    """samplePhotonDirection of light li for each row of u (..., 2):
+    a uniform sphere direction (point, PointLight.h:28-31); cosine
+    about the normal (square, SquareLight.h:41-48); the normal itself
+    (directional-area, DirectionalAreaLight.h:31-34), which ignores u.
+    The JAX function draws the sphere and the cosine sample from one
+    key, so both kinds read the same uniforms here too."""
+    kind = lt.kinds[li]
+    nrm = lt.normal[li].expand(u.shape[:-1] + (3,))
+    if kind == LIGHT_POINT:
+        return uniform_sphere(u)
+    if kind == LIGHT_SQUARE:
+        return cosine_hemisphere_about(u, nrm)
+    if kind == LIGHT_DIRECTIONAL_AREA:
+        return nrm
+    raise ValueError(f"unknown light kind {kind}")
+
+
+def draw_sample_photon_direction(lt: LightTable, li: int,
+                                 gen: torch.Generator, shape, device=None):
+    """sample_photon_direction with its uniforms drawn from gen."""
+    return sample_photon_direction(
+        lt, li, uniform(gen, tuple(shape) + (2,), device))
 
 
 @dataclasses.dataclass

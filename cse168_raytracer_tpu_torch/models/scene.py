@@ -1,8 +1,9 @@
 """Scene container and its static facts.
 
 Counterpart of cse168_raytracer_tpu/models/scene.py: the geometry
-pools, material and light tables, environment, image textures and
-cellular textures in one dataclass, plus
+pools, material and light tables, environment, image textures,
+cellular textures and the photon maps (ops/photon.py) in one
+dataclass, plus
 `SceneStatic`, the host-known facts that select code paths (texture
 kinds present, bump maps, light count, reflective / refractive
 materials).
@@ -11,7 +12,7 @@ materials).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,6 +33,9 @@ from cse168_raytracer_tpu_torch.models.textures import (CellularTexture,
                                                         has_bump,
                                                         make_environment)
 
+if TYPE_CHECKING:
+    from cse168_raytracer_tpu_torch.ops.photon import PhotonMaps
+
 
 @dataclasses.dataclass
 class Scene:
@@ -46,6 +50,8 @@ class Scene:
     # cellular point-set textures (CellularTexture2D, Texture.h:84-99)
     cellulars: Tuple[CellularTexture, ...] = ()
     accel: Optional[object] = None
+    # photon grids (global, caustic) built by ops/photon.py, or None
+    photons: Optional["PhotonMaps"] = None
 
     def replace(self, **kw) -> "Scene":
         return dataclasses.replace(self, **kw)

@@ -118,8 +118,7 @@ def test_cli_scenes(capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--photons", "1000"], ["--caustic-photons", "500"],
-    ["--visualize-photons", "v.png"], ["--sharded"],
+    ["--sharded"],
     ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
     ["--progressive"], ["--checkpoint", "c.npz"], ["view"], ["window"]])
 def test_cli_unported_options_exit_nonzero(extra, capsys, tmp_path):
@@ -154,6 +153,7 @@ def _constructors():
     from cse168_raytracer_tpu_torch.models import geometry, lights, scene
     from cse168_raytracer_tpu_torch.models.materials import MaterialBuilder
     from cse168_raytracer_tpu_torch.models.textures import make_environment
+    from cse168_raytracer_tpu_torch.ops import photon
     from cse168_raytracer_tpu_torch.render import camera
     z3 = np.zeros((128, 3), np.float32)
     z2 = np.zeros((128, 2), np.float32)
@@ -197,6 +197,8 @@ def _constructors():
             cam_np, **kw),
         "interop.scene_from_numpy": lambda **kw: interop.scene_from_numpy(
             js, jst, **kw),
+        "build_grid": lambda **kw: photon.build_grid(
+            z3, np.ones((128, 3), np.float32), z3, 0.5, **kw),
     }
 
 
@@ -212,8 +214,9 @@ def _tensors(obj):
     return []
 
 
-CONSTRUCTORS = ("MaterialBuilder.build", "build_pack_from_arrays",
-                "camera_from_arrays", "empty_plane_pool", "empty_sphere_pool",
+CONSTRUCTORS = ("MaterialBuilder.build", "build_grid",
+                "build_pack_from_arrays", "camera_from_arrays",
+                "empty_plane_pool", "empty_sphere_pool",
                 "empty_triangle_pack", "interop.camera_from_numpy",
                 "interop.scene_from_numpy", "light_table_from_arrays",
                 "make_camera", "make_environment", "make_light_table",

@@ -3,7 +3,9 @@ walk, and the per-ray kernel it replaced) with and without its in-kernel
 counters (K1-K4), the binary-tree traversal in its three modes (K5) and
 the block brute force (K6), each against its plain PyTorch version; and
 the textured path on the card against the CPU (Worley's tie order, and a
-textured, bump-mapped mesh rendered through K1).
+textured, bump-mapped mesh rendered through K1); and the photon path on
+the card against the CPU (the gather's radii bit for bit, photon tracing
+on the same uniforms).
 
 These tests need an NVIDIA GPU and the CUDA toolkit; without a GPU they
 skip. They import neither jax nor the JAX package, so they run on a
@@ -372,3 +374,72 @@ def test_textured_scene_card_matches_cpu(cuda, tmp_path):
     diff = byte_diff(*hdrs)
     assert np.mean(diff <= 2) >= 0.999 and diff.mean() <= 0.05, (
         np.mean(diff <= 2), diff.mean(), diff.max())
+
+
+def small_photon_maps():
+    """chip_smoke.py phase 11's stand-in scene on the CPU and 4,000 +
+    4,000 photons of it (max_per_cell 32, as there)."""
+    from chip_smoke import photon_scene
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.ops.photon import build_photon_maps
+    scene, static, cam = photon_scene(torch.device("cpu"))
+    cfg = RenderConfig(photons_per_light=4000, caustic_photons_per_light=4000,
+                       photon_grid_max_per_cell=32)
+    maps = build_photon_maps(scene, static, cfg,
+                             torch.Generator().manual_seed(7))
+    return scene, static, cam, maps
+
+
+def test_photon_gather_card_matches_cpu(cuda):
+    """The gather on the card and on the CPU, same maps and points
+    (phase 11(b) at a small size): r'^2 of both levels and the level
+    choice bit for bit, the irradiance within rtol 1e-5 (the order of
+    the final sum may differ)."""
+    from chip_smoke import diffuse_points
+    from cse168_raytracer_tpu_torch.core.vecmath import safe_normalize
+    from cse168_raytracer_tpu_torch.ops import photon as ph
+    scene, static, cam, maps = small_photon_maps()
+    p, n = diffuse_points(scene, static, cam, 2000, res=64)
+    n = safe_normalize(n)
+    for name in ("global_map", "caustic_map"):
+        grid = getattr(maps, name)
+        args = (grid.power, grid.coarse.power, 500)
+        cpu_out = ph.gather_levels(grid, p, n, *args)
+        g = grid.to(cuda)
+        card_out = ph.gather_levels(g, p.to(cuda), n.to(cuda), g.power,
+                                    g.coarse.power, 500)
+        for a, b in zip(card_out[1:], cpu_out[1:]):
+            assert torch.equal(a.cpu(), b)
+        assert cpu_out[0].abs().sum() > 0
+        torch.testing.assert_close(card_out[0].cpu(), cpu_out[0], rtol=1e-5,
+                                   atol=0)
+
+
+def test_photon_trace_card_matches_cpu(cuda):
+    """trace_photon_batch on the card and on the CPU with the same
+    uniforms (phase 11(c) at 8,192 photons), global and caustic, at
+    chip_smoke's bars: masks on TRACE_MASK_AGREE of the slots, the
+    jointly stored slots' positions, directions and powers within
+    rtol/atol 1e-4 on TRACE_CLOSE of them."""
+    from chip_smoke import TRACE_CLOSE, TRACE_MASK_AGREE, photon_scene
+    from cse168_raytracer_tpu_torch.ops import photon as ph
+    cpu_scene, static, _, _ = small_photon_maps()
+    card_scene = photon_scene(cuda)[0]
+    for caustic in (False, True):
+        u = ph.draw_photon_uniforms(torch.Generator().manual_seed(int(caustic)),
+                                    8192, 5, False)
+        u_card = ph.PhotonUniforms(**{
+            f.name: None if getattr(u, f.name) is None
+            else getattr(u, f.name).to(cuda) for f in dataclasses.fields(u)})
+        a = ph.trace_photon_batch(card_scene, static, 0, caustic, False,
+                                  u_card)
+        b = ph.trace_photon_batch(cpu_scene, static, 0, caustic, False, u)
+        am = a.mask.cpu()
+        assert float((am == b.mask).float().mean()) >= TRACE_MASK_AGREE
+        both = am & b.mask
+        assert both.sum() > 100
+        for f in ("pos", "dir", "power"):
+            ok = torch.isclose(getattr(a, f).cpu()[both],
+                               getattr(b, f)[both], rtol=1e-4,
+                               atol=1e-4).all(-1)
+            assert float(ok.float().mean()) >= TRACE_CLOSE, f
