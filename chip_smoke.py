@@ -58,6 +58,22 @@ traversal's (torch.profiler); (e) that render at 64², card against CPU
 by tests/test_golden.py's bar; (f) `cli render` with --photons,
 --caustic-photons, --stats and --visualize-photons through cli.render
 (built=), and the glassless box with --photons (K2's shadow rays).
+Phase 12 runs the rest of the port on lit sponza_proxy at 512x512, depth
+4: (a) 16 curved bilinear patches in a material of their own, the patch
+hits of the primary rays, the forward and fwd+bwd w.r.t. kd and w.r.t.
+the patches' p11 corners, card against CPU at 64x64, and float32 sqrt
+card against CPU (torch.sqrt and the patch test's sqrt_rn); (b)
+render_hdr_sharded over local meshes of 1, 2 and 4 shards against
+render_hdr, train_step_sharded's time and its step against the one-shard
+step, and one sharded step through an NCCL process group of world size
+1; (c) two processes of `cli render --sharded` joined over gloo on the
+one card (test_sphere), their frame against the one-process 2-shard
+frame; (d) `cli render --progressive --path-tracing --spp 16
+--checkpoint` stopped at 8 samples and resumed, against the straight
+run, and `cli view` at 256x256, 8 spp; (e) InteractiveViewer's preview
+and raytrace frames after keys and drags; (f) build_photon_maps over a
+2-shard mesh on photon_box against phase 11's unsharded build. Phase
+12's K1/K2 launches are added to the kernels line.
 Each phase prints its own lines; any failure raises and exits non-zero.
 The second-to-last line is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it
@@ -113,6 +129,11 @@ PHOTON_GATHER_POINTS = 65_536
 PHOTON_TRACE_N = 65_536
 PHOTON_REPS = 3
 SPHERE_RINGS = 71          # the glass sphere: 4 x 71 x 70 = 19,880 triangles
+N_PATCHES = 16             # phase 12(a)'s bilinear patches
+PATCH_CPU_RES = 64         # phase 12(a)'s card-vs-CPU image
+TWO_PROC_SCENE = "test_sphere"  # phase 12(c): lit as registered
+VIEW_RES = 256             # phase 12(d)'s `cli view`
+VIEW_SPP = 8
 # phase 11(c): card and CPU photons that both stored, at rtol/atol 1e-4
 TRACE_MASK_AGREE = 0.999
 TRACE_CLOSE = 0.98
@@ -2285,6 +2306,447 @@ def phase_photons(device, card):
                 match=match, cli=cli_runs, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: bilinear patches, sharding, progressive rendering, the viewer
+# ---------------------------------------------------------------------------
+
+def patch_pool(device):
+    """N_PATCHES curved patches, a 4 x 4 grid of saddles at x ~ -2 facing
+    the camera (+x), lit from the light at (0, 8, 0)."""
+    from cse168_raytracer_tpu_torch.models.geometry import make_blpatch_pool
+    c = [[], [], [], []]
+    for i in range(4):
+        for j in range(4):
+            x = -2.0 - 0.15 * ((i + j) % 2)
+            z0, y0 = -3.0 + 1.15 * i, 1.0 + 0.8 * j
+            c[0].append((x, y0, z0))
+            c[1].append((x, y0 + 0.7, z0))               # p10: Su along y
+            c[2].append((x, y0, z0 + 1.0))               # p01: Sv along z
+            c[3].append((x + 0.4, y0 + 0.7, z0 + 1.0))   # p11 bent to +x
+    return make_blpatch_pool(*c, [0] * N_PATCHES, device=device)
+
+
+def patch_scene(device):
+    """Lit sponza_proxy at RES x RES, depth DEPTH, with patch_pool's
+    patches in a material of their own (orange, diffuse)."""
+    import torch
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.models.scene import make_static
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    from cse168_raytracer_tpu_torch.scenes import build
+    cfg = RenderConfig(width=RES, height=RES, trace_depth=DEPTH)
+    scene, static, cam, cfg = build("sponza_proxy", cfg, device=device)
+    scene = lit_sponza(scene)
+    mats = scene.materials
+    new = {f.name: torch.cat([getattr(mats, f.name), getattr(mats, f.name)[:1]])
+           for f in dataclasses.fields(mats)}
+    new["kd"][-1] = torch.tensor([0.9, 0.5, 0.2])
+    mats = mats.replace(**new)
+    pool = patch_pool(device)
+    pool.material_id.fill_(mats.num_materials - 1)
+    scene = attach_accel(scene.replace(materials=mats, blpatches=pool))
+    return scene, make_static(mats, scene.lights), cam, cfg
+
+
+def golden_or_exact(label, a, b, rtol=1e-5, atol=1e-6):
+    """Which bar two HDR images meet: "rtol 1e-5" per pixel, else
+    tests/test_golden.py's on their bytes; raises when neither holds."""
+    import torch
+    err = float((a - b).abs().max())
+    if torch.allclose(a, b, rtol=rtol, atol=atol):
+        bar = f"rtol {rtol:g} (max |diff| {err:.3g})"
+    else:
+        diff = byte_diff(a, b)
+        within2, mean = float(np.mean(diff <= 2)), float(diff.mean())
+        if within2 < 0.999 or mean > 0.05:
+            raise AssertionError(f"{label}: images disagree (max |diff| "
+                                 f"{err:.3g}, {within2 * 100:.3f}% of bytes "
+                                 f"within +-2, mean {mean:.4f})")
+        bar = (f"the golden bar ({within2 * 100:.3f}% of bytes within +-2, "
+               f"mean {mean:.4f}; max |diff| {err:.3g})")
+    log(f"  {label}: {bar}")
+    return bar, err
+
+
+def phase_patches(device, card):
+    """12(a): lit sponza_proxy with N_PATCHES patches: the patch hits, the
+    forward and the fwd+bwd w.r.t. kd and a corner, card against CPU."""
+    import torch
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    from cse168_raytracer_tpu_torch.ops.intersect import PRIM_BLPATCH
+    from cse168_raytracer_tpu_torch.ops.shading import trace_closest
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    scene, static, cam, cfg = patch_scene(device)
+    o, d = primary_rays(cam, RES, RES, device)
+    with torch.no_grad():
+        hit, _ = trace_closest(scene, static, o, d)
+    n_patch = int((hit.prim_type == PRIM_BLPATCH).sum())
+    log(f"[12a patches] lit sponza_proxy {scene.tris.n_valid} triangles + "
+        f"{N_PATCHES} bilinear patches, {RES}x{RES}, depth {DEPTH}: "
+        f"{n_patch} of {RES * RES} primary rays hit a patch")
+    if n_patch == 0:
+        raise AssertionError("12a: no primary ray hits a patch")
+    before = dict(wb.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats(device)
+    with torch.no_grad():
+        hdr, stats = render_hdr(scene, static, cam, cfg)
+        fwd_ms = time_cuda(lambda: render_hdr(scene, static, cam, cfg), 5)
+    if not bool(torch.isfinite(hdr).all()) or not bool(hdr.max() > hdr.min()):
+        raise AssertionError("12a: NaN or constant image")
+    _, kd_grad, _, kd_ms, _ = timed_steps(scene, static, cam, cfg, 3)
+
+    def corner_step():
+        p11 = scene.blpatches.p11.detach().clone().requires_grad_(True)
+        s = scene.replace(blpatches=scene.blpatches.replace(p11=p11))
+        render_hdr(s, static, cam, cfg)[0].sum().backward()
+        return p11.grad
+
+    corner_grad = corner_step()
+    corner_ms = time_cuda(corner_step, 3)
+    peak = torch.cuda.max_memory_allocated(device) / 2**20
+    launches = launches_since(wb, before)
+    if min(launches["closest"], launches["any"]) < 1:
+        raise AssertionError(f"12a: K1 or K2 not launched: {launches}")
+    for name, g in (("kd", kd_grad), ("p11", corner_grad)):
+        if not bool(torch.isfinite(g).all()) or not bool(g.abs().sum() > 0):
+            raise AssertionError(f"12a: the {name} gradient is 0 or NaN")
+    log(f"[12a patches] forward {fwd_ms:.3f} ms, fwd+bwd w.r.t. kd "
+        f"{kd_ms:.3f} ms, w.r.t. the patches' p11 {corner_ms:.3f} ms (CUDA "
+        f"events); peak device memory {peak:.1f} MiB; |grad p11| sum "
+        f"{float(corner_grad.abs().sum()):.6g}; wide-tree launches "
+        f"{launches}; card {card}")
+
+    # the patch test's square root: torch.sqrt against sqrt_rn, card
+    # against CPU, on 2^20 seeded uniforms in [0, 100)
+    from cse168_raytracer_tpu_torch.core.vecmath import sqrt_rn
+    x = torch.rand(1 << 20, generator=torch.Generator().manual_seed(SEED)) * 100
+    sqrt_diff = int((torch.sqrt(x.to(device)).cpu() != torch.sqrt(x)).sum())
+    if not torch.equal(sqrt_rn(x.to(device)).cpu(), sqrt_rn(x)):
+        raise AssertionError("12a: sqrt_rn differs between card and CPU")
+    log(f"[12a patches] float32 torch.sqrt differs between card and CPU on "
+        f"{sqrt_diff} of {x.numel()} uniforms in [0, 100); sqrt_rn on none")
+
+    small = cfg.replace(width=PATCH_CPU_RES, height=PATCH_CPU_RES)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        card_hdr = render_hdr(scene, static, cam, small)[0]
+        cs, cst, ccam, _ = patch_scene(torch.device("cpu"))
+        cpu_hdr = render_hdr(cs, cst, ccam, small)[0]
+    bar, err = golden_or_exact(
+        f"[12a patches] card vs CPU {PATCH_CPU_RES}x{PATCH_CPU_RES} "
+        f"({time.perf_counter() - t0:.1f} s)", card_hdr.cpu(), cpu_hdr)
+    return dict(fwd_ms=fwd_ms, kd_ms=kd_ms, corner_ms=corner_ms,
+                patch_hits=n_patch, peak_mib=peak, launches=launches,
+                cpu_bar=bar, sqrt_diff=sqrt_diff)
+
+
+def phase_sharding(device, card):
+    """12(b): render_hdr_sharded over local meshes of 1, 2 and 4 shards
+    against render_hdr on lit sponza_proxy; train_step_sharded's time
+    and its step against the one-shard step; NCCL at world size 1."""
+    import socket
+    import torch
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    from cse168_raytracer_tpu_torch.parallel import distributed as dist
+    from cse168_raytracer_tpu_torch.parallel.sharding import (
+        make_mesh, render_hdr_sharded, train_step_sharded)
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    from cse168_raytracer_tpu_torch.scenes import build
+    cfg = RenderConfig(width=RES, height=RES, trace_depth=DEPTH)
+    scene, static, cam, cfg = build("sponza_proxy", cfg, device=device)
+    scene = lit_sponza(attach_accel(scene))
+    out = {"render_ms": {}, "step_ms": {}, "bars": {}}
+    before = dict(wb.LAUNCHES)
+    with torch.no_grad():
+        ref = render_hdr(scene, static, cam, cfg)[0]
+        out["render_ms"][0] = time_cuda(
+            lambda: render_hdr(scene, static, cam, cfg), 5)
+        for n in (1, 2, 4):
+            mesh = make_mesh(n, device)
+            shd = render_hdr_sharded(scene, static, cam, cfg, mesh)
+            out["bars"][n] = golden_or_exact(
+                f"[12b sharding] {n} shard(s) vs render_hdr", shd, ref)[0]
+            out["render_ms"][n] = time_cuda(
+                lambda: render_hdr_sharded(scene, static, cam, cfg, mesh), 5)
+    target = torch.full((RES, RES, 3), 0.05, device=device)
+    steps = {}
+    for n in (1, 2, 4):
+        mesh = make_mesh(n, device)
+        steps[n] = train_step_sharded(scene, static, cam, cfg, mesh, target)
+        out["step_ms"][n] = time_cuda(lambda: train_step_sharded(
+            scene, static, cam, cfg, mesh, target), 3, warm=False)
+    kd1 = steps[1][0].materials.kd
+    errs = {n: float(((steps[n][0].materials.kd - kd1).abs()
+                      / kd1.abs().clamp(min=1e-30)).max()) for n in (2, 4)}
+    if not bool((kd1 != scene.materials.kd).any()):
+        raise AssertionError("12b: the train step left kd unchanged")
+    if max(errs.values()) > 1e-4:
+        raise AssertionError(f"12b: sharded steps differ from the one-shard "
+                             f"step: {errs}")
+    # NCCL at world size 1: one sharded step through the process group
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_multihost(f"127.0.0.1:{port}", 1, 0, backend="nccl",
+                        device=device)
+    try:
+        mesh = dist.global_mesh(1, device)
+        if torch.distributed.get_backend(mesh.group) != "nccl":
+            raise AssertionError("12b: the group is not NCCL")
+        new, loss = train_step_sharded(scene, static, cam, cfg, mesh, target)
+        out["step_ms"]["nccl"] = time_cuda(lambda: train_step_sharded(
+            scene, static, cam, cfg, mesh, target), 3, warm=False)
+        img = dist.gather_image(render_hdr_sharded(scene, static, cam, cfg,
+                                                   mesh), mesh)
+    finally:
+        dist.shutdown()
+    nccl_err = float((new.materials.kd - kd1).abs().max())
+    frame_ok = torch.allclose(torch.as_tensor(img), ref.cpu(), rtol=1e-5,
+                              atol=1e-6)
+    if nccl_err > 1e-6 or not frame_ok:
+        raise AssertionError(f"12b: the NCCL step or frame differs "
+                             f"(kd {nccl_err:.3g}, frame ok {frame_ok})")
+    out["launches"] = launches_since(wb, before)
+    out["kd_rel_err"] = errs
+    log(f"[12b sharding] forward ms: render_hdr {out['render_ms'][0]:.3f}, "
+        + ", ".join(f"{n} shard(s) {out['render_ms'][n]:.3f}"
+                    for n in (1, 2, 4))
+        + "; train_step_sharded ms: "
+        + ", ".join(f"{n} {v:.3f}" for n, v in out["step_ms"].items())
+        + f"; new kd vs one shard, max rel {errs}; NCCL (world size 1) kd "
+        f"max |diff| {nccl_err:.3g}; wide-tree launches {out['launches']}; "
+        f"card {card}")
+    return out
+
+
+def phase_two_processes(device, card):
+    """12(c): two processes of `cli render --sharded` on the one card
+    (the command line joins them over gloo: NCCL refuses two ranks on a
+    card) against the one-process 2-shard frame."""
+    import socket
+    import torch
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.parallel.sharding import (
+        make_mesh, render_hdr_sharded)
+    from cse168_raytracer_tpu_torch.render.tonemap import to_bytes, tonemap
+    from cse168_raytracer_tpu_torch.scenes import build
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{i}.ppm") for i in range(2)]
+        argv = [sys.executable, "-m", "cse168_raytracer_tpu_torch.cli",
+                "render", "--scene", TWO_PROC_SCENE, "--width", str(RES),
+                "--height", str(RES), "--depth", str(DEPTH), "--sharded",
+                "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+                "--bench", "--device", device.type]
+        log(f"[12c two processes] {' '.join(argv[1:])} --process-id i")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(argv + ["--process-id", str(i), "--out",
+                                          outs[i]], cwd=root,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for i in range(2)]
+        texts = []
+        try:
+            for p in procs:
+                texts.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for i, (p, text) in enumerate(zip(procs, texts)):
+            log("\n".join(f"  rank {i}: {ln}" for ln in text.splitlines()))
+            if p.returncode != 0:
+                raise AssertionError(f"12c: rank {i} exited {p.returncode}")
+            if "2 processes over gloo" not in text:
+                raise AssertionError(f"12c: rank {i} did not join over gloo")
+        if os.path.exists(outs[1]):
+            raise AssertionError("12c: rank 1 wrote an image")
+        two = read_ppm(outs[0])
+    cfg = RenderConfig(width=RES, height=RES, trace_depth=DEPTH)
+    scene, static, cam, cfg = build(TWO_PROC_SCENE, cfg, device=device)
+    with torch.no_grad():
+        one = render_hdr_sharded(scene, static, cam, cfg,
+                                 make_mesh(2, device))
+    one = to_bytes(tonemap(one)).cpu().numpy()[::-1]     # the file's rows
+    bad = int((two != one).any(-1).sum())
+    log(f"[12c two processes] {TWO_PROC_SCENE} {RES}x{RES}, depth {DEPTH}: "
+        f"2 processes x 1 shard over gloo on one card, {wall:.2f} s wall "
+        f"(process start, build, render, gather); the frame equals the "
+        f"one-process 2-shard frame in {RES * RES - bad} of {RES * RES} "
+        f"pixels; card {card}")
+    if bad:
+        raise AssertionError("12c: the two-process frame differs")
+    return dict(wall_s=wall)
+
+
+def phase_progressive(device, card):
+    """12(d): `cli render --progressive --path-tracing --spp 16
+    --checkpoint` on lit sponza_proxy, stopped at 8 samples and resumed,
+    against the straight run; `cli view` at 256x256, 8 spp."""
+    import io
+    from cse168_raytracer_tpu_torch import cli
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    from cse168_raytracer_tpu_torch.scenes import build
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    scene, static, cam, _ = build("sponza_proxy", RenderConfig(
+        width=RES, height=RES), device=device)
+    built = (lit_sponza(attach_accel(scene)), static, cam)
+    before = dict(wb.LAUNCHES)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "state.npz")
+        base = ["render", "--scene", "sponza_proxy", "--width", str(RES),
+                "--height", str(RES), "--depth", str(DEPTH), "--progressive",
+                "--path-tracing", "--no-accel", "--device", device.type]
+        for label, extra in (("straight", ["--spp", str(SPP)]),
+                             ("first 8", ["--spp", str(SPP // 2),
+                                          "--checkpoint", ckpt]),
+                             ("resumed", ["--spp", str(SPP), "--checkpoint",
+                                          ckpt])):
+            err = io.StringIO()
+            argv = base + extra + ["--out", os.path.join(tmp, "p.png")]
+            with contextlib.redirect_stderr(err):
+                res[label] = cli.render(cli.parser().parse_args(argv),
+                                        built=built)
+            log(f"[12d progressive] {label}: {' '.join(argv[1:-2])}")
+            log(err.getvalue().rstrip())
+        if "resumed at 8/16" not in err.getvalue():
+            raise AssertionError("12d: the second run did not resume")
+        bar, _ = golden_or_exact("[12d progressive] resumed vs straight",
+                                 res["resumed"]["hdr"], res["straight"]["hdr"])
+        view_out = os.path.join(tmp, "preview.png")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            view = cli.view(cli.parser().parse_args(
+                ["view", "--scene", "sponza_proxy", "--width", str(VIEW_RES),
+                 "--height", str(VIEW_RES), "--spp", str(VIEW_SPP),
+                 "--device", device.type, "--out", view_out]))
+        if not os.path.getsize(view_out) or view["hdr"].shape != (
+                VIEW_RES, VIEW_RES, 3):
+            raise AssertionError("12d: cli view wrote no preview")
+    launches = launches_since(wb, before)
+    ms = res["straight"]["first_s"] * 1e3 / SPP
+    log(f"[12d progressive] {ms:.3f} ms a sample ({RES}x{RES}, depth "
+        f"{DEPTH}, path-traced, host clock over the straight run's {SPP}); "
+        f"resumed = straight by {bar}; cli view {VIEW_RES}x{VIEW_RES} "
+        f"{VIEW_SPP} spp in {view['s']:.3f} s "
+        f"({view['s'] * 1e3 / VIEW_SPP:.3f} ms a sample, writing the image "
+        f"each time); wide-tree launches {launches}; card {card}")
+    return dict(ms_per_sample=ms, bar=bar, view_s=view["s"],
+                launches=launches)
+
+
+def phase_viewer(device, card):
+    """12(e): InteractiveViewer on lit sponza_proxy: preview and raytrace
+    frames, after keys and a drag."""
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    from cse168_raytracer_tpu_torch.render.viewer import InteractiveViewer
+    from cse168_raytracer_tpu_torch.scenes import build
+    cfg = RenderConfig(width=RES, height=RES, trace_depth=DEPTH)
+    scene, static, cam, cfg = build("sponza_proxy", cfg, device=device)
+    v = InteractiveViewer(lit_sponza(attach_accel(scene)), static, cam, cfg)
+    before = dict(wb.LAUNCHES)
+    times = {"preview": [], "raytrace": []}
+    for key in ("g", "w", "d", "drag", "+", "a", "r", "s", "drag", "g"):
+        if key == "drag":
+            v.handle_drag(12.0, -5.0)
+        else:
+            v.handle_key(key)
+        mode = "raytrace" if v.state.raytrace else "preview"
+        t0 = time.perf_counter()
+        frame = v.render_frame()      # a host array: the frame is done
+        times[mode].append((time.perf_counter() - t0) * 1e3)
+        if frame.shape != (RES, RES, 3) or not frame.any():
+            raise AssertionError(f"12e: a blank {mode} frame")
+    launches = launches_since(wb, before)
+    # the first frame of each mode includes its warm-up
+    ms = {k: float(np.median(t[1:])) for k, t in times.items()}
+    log(f"[12e viewer] {RES}x{RES} lit sponza_proxy: preview "
+        f"({RES // 4}x{RES // 4}, depth 1, no shadows) {ms['preview']:.3f} ms "
+        f"a frame, raytrace (depth {DEPTH}) {ms['raytrace']:.3f} ms a frame "
+        f"(medians, host clock to the uint8 frame, first frames left out; "
+        f"{len(times['preview'])} + {len(times['raytrace'])} frames); "
+        f"wide-tree launches {launches}; card {card}")
+    return dict(ms=ms, launches=launches)
+
+
+def phase_photon_sharded(device, card, unsharded):
+    """12(f): build_photon_maps over a 2-shard mesh on photon_box against
+    phase 11's unsharded build: stored photons per level per emitted one
+    within tests/test_torch_photon.py's bar (3x the difference of two
+    independent builds plus 3 sigma of one build's binomial noise), with
+    the two-build difference at its standard deviation: 3 sigma_diff +
+    3 sigma_one."""
+    import torch
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
+    from cse168_raytracer_tpu_torch.ops.photon import build_photon_maps
+    from cse168_raytracer_tpu_torch.parallel.sharding import make_mesh
+    scene, static, _ = photon_scene(device)
+    cfg = RenderConfig(**PHOTON_CFG)
+    before = dict(wb.LAUNCHES)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    maps, stats = build_photon_maps(scene, static, cfg, gen,
+                                    return_stats=True,
+                                    mesh=make_mesh(2, device))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launches_since(wb, before)
+    worst = 0.0
+    for name in ("global", "caustic"):
+        a, b = stats[name], unsharded[name]
+        fa = np.asarray(a["stored_per_level"], np.float64) / a["emitted"]
+        fb = np.asarray(b["stored_per_level"], np.float64) / b["emitted"]
+        one = np.sqrt(fb * (1 - fb) / a["emitted"])
+        diff = np.sqrt(fb * (1 - fb) / a["emitted"]
+                       + fb * (1 - fb) / b["emitted"])
+        z = np.abs(fa - fb) / np.maximum(3 * diff + 3 * one, 1e-12)
+        worst = max(worst, float(z.max()))
+        log(f"[12f photons] {name}: 2 shards emitted {a['emitted']}, stored "
+            f"{a['stored']} {a['stored_per_level']}; unsharded emitted "
+            f"{b['emitted']}, stored {b['stored']} {b['stored_per_level']}; "
+            f"largest difference {float(z.max()):.3f} of the bar")
+        grid = maps.global_map if name == "global" else maps.caustic_map
+        if grid is None or grid.n_valid < PHOTONS:
+            raise AssertionError(f"12f: the sharded {name} map is short")
+    log(f"[12f photons] sharded build {secs:.3f} s, wide-tree launches "
+        f"{launches}; card {card}")
+    if worst > 1.0:
+        raise AssertionError("12f: sharded stored counts outside the bar")
+    return dict(s=secs, worst_of_bar=worst, launches=launches)
+
+
+def phase_patches_and_parallel(device, card, photon_build_stats):
+    """Phase 12 (a)-(f)."""
+    t_phase = time.perf_counter()
+    out = dict(patches=phase_patches(device, card),
+               sharding=phase_sharding(device, card),
+               two=phase_two_processes(device, card),
+               progressive=phase_progressive(device, card),
+               viewer=phase_viewer(device, card),
+               photons=phase_photon_sharded(device, card,
+                                            photon_build_stats))
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in (
+        "patches", "sharding", "progressive", "viewer", "photons"))
+        for k in out["patches"]["launches"]}
+    log(f"[12] wide-tree launches of phase 12: {out['launches']}; "
+        f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     device, card = phase_device()
     build_s, ptxas = phase_build()
@@ -2302,6 +2764,7 @@ def main():
     steps, k5, k5_stats_launches, _, k4 = phase_kinds(device, sponza_rays)
     textured = phase_textured(device, card)
     photons = phase_photons(device, card)
+    rest = phase_patches_and_parallel(device, card, photons["build"]["stats"])
     import torch
     src = "cse168_raytracer_tpu_torch/csrc/traverse_wide.cu"
     replaces = "cse168_raytracer_tpu/ops/pallas_bvh.py:1056"
@@ -2321,7 +2784,8 @@ def main():
          "source": src, "replaces": replaces,
          "launches": (main_run["launches"]["closest"]
                       + textured["launches"]["closest"]
-                      + photons["launches"]["closest"]),
+                      + photons["launches"]["closest"]
+                      + rest["launches"]["closest"]),
          "max_abs_err": errs["closest"], "library_ms": None,
          **{k: timing["closest"][k] for k in wkeys},
          **regs("W=4 closest")},
@@ -2329,7 +2793,8 @@ def main():
          "source": src, "replaces": replaces,
          "launches": (main_run["launches"]["any"]
                       + textured["launches"]["any"]
-                      + photons["launches"]["any"]),
+                      + photons["launches"]["any"]
+                      + rest["launches"]["any"]),
          "max_abs_err": errs["any"], "library_ms": None,
          **{k: timing["any"][k] for k in wkeys}, **regs("W=4 any")},
         {"name": "traverse_wide with counters, closest+attr and any-hit "

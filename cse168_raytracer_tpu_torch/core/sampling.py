@@ -31,6 +31,28 @@ from cse168_raytracer_tpu_torch.core.vecmath import (align_hemisphere, dot,
                                                      onb, safe_normalize)
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, i: int) -> int:
+    """The seed of stream i of a render seeded with `seed`, the port's
+    counterpart of jax.random.fold_in(key, i), which torch.Generator
+    cannot replay: x = seed * 0x9E3779B97F4A7C15 + i + 1 (mod 2^64), then
+    SplitMix64's finalizer (x ^= x >> 30; x *= 0xBF58476D1CE4E5B9;
+    x ^= x >> 27; x *= 0x94D049BB133111EB; x ^= x >> 31, mod 2^64), kept
+    to 63 bits. A function of the two integers alone, so every process
+    and device derives the same seed for the same stream."""
+    x = (seed * 0x9E3779B97F4A7C15 + i + 1) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (x ^ (x >> 31)) >> 1
+
+
+def stream(seed: int, i: int, device) -> torch.Generator:
+    """A generator on `device` seeded with fold_seed(seed, i)."""
+    return torch.Generator(device=device).manual_seed(fold_seed(seed, i))
+
+
 def uniform(gen: torch.Generator, shape, device=None) -> torch.Tensor:
     """float32 uniforms in [0, 1) of `shape`, drawn from `gen` on the
     generator's own device and placed on `device` (default: that one).

@@ -43,6 +43,16 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         a0 * b1 - a1 * b0], -1)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The float32 square root rounded to nearest on every device: taken
+    in float64 and rounded once to float32, which is the correctly
+    rounded float32 root (53 >= 2 * 24 + 2 bits). PyTorch's float32
+    torch.sqrt on the card differs from the CPU's by an ulp on some
+    inputs (chip_smoke.py phase 12(a) counts them), and an
+    ill-conditioned quadratic magnifies that ulp."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def ipow(x: torch.Tensor, n: int) -> torch.Tensor:
     """x ** n for an integer n >= 1 by repeated squaring, in the order of
     jax.lax.integer_pow (which jnp's `x ** 500` lowers to)."""
@@ -111,6 +121,18 @@ def align_hemisphere(v: torch.Tensor, theta: torch.Tensor,
     u2 = sp * torch.sin(theta)[..., None]
     u3 = torch.cos(phi)[..., None]
     return safe_normalize(u1 * t1 + u2 * t2 + u3 * v)
+
+
+def rotate_about_axis(v: torch.Tensor, theta, w: torch.Tensor) -> torch.Tensor:
+    """Vector3::rotated(theta, w) (Vector3.h:217-224; JAX
+    core/vecmath.py:119-125): v rotated about the axis w (normalized
+    here) by theta radians, by Rodrigues' formula. A Python theta is
+    taken as float32, as jnp takes it."""
+    w = safe_normalize(w)
+    theta = torch.as_tensor(theta, dtype=v.dtype, device=v.device)
+    c = torch.cos(theta)
+    s = torch.sin(theta)
+    return v * c + cross(w, v) * s + w * dotk(w, v) * (1.0 - c)
 
 
 def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:

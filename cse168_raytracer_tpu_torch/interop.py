@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from cse168_raytracer_tpu_torch.config import resolve_device
-from cse168_raytracer_tpu_torch.models.geometry import (PlanePool, SpherePool,
+from cse168_raytracer_tpu_torch.models.geometry import (BLPatchPool,
+                                                        PlanePool, SpherePool,
                                                         TrianglePack)
 from cse168_raytracer_tpu_torch.models.lights import light_table_from_arrays
 from cse168_raytracer_tpu_torch.models.materials import MaterialTable
@@ -48,10 +49,8 @@ def scene_from_numpy(scene, static, device=None):
     static facts with numpy leaves: geometry, materials, lights, the
     environment (its image map too), image and cellular textures, and
     the photon maps (both grids and their coarse levels, every field
-    as written). Bilinear patches are not ported yet and raise."""
+    as written) and the bilinear patches."""
     device = resolve_device(device)
-    if getattr(scene, "blpatches", None) is not None:
-        raise NotImplementedError("scene.blpatches is not ported yet")
 
     tp = scene.tris
     pack = TrianglePack(
@@ -91,10 +90,15 @@ def scene_from_numpy(scene, static, device=None):
                                               device),
             caustic_map=photon_grid_from_numpy(scene.photons.caustic_map,
                                                device))
+    blpatches = None
+    if getattr(scene, "blpatches", None) is not None:
+        blpatches = BLPatchPool(**_fields(
+            scene.blpatches, ("p00", "p10", "p01", "p11") + pool_f, device))
     port_scene = Scene(tris=pack, spheres=spheres, planes=planes,
                        materials=materials, lights=lights, env=environment,
                        images=tuple(_image(i, device) for i in scene.images),
-                       cellulars=cellulars, photons=photons)
+                       cellulars=cellulars, photons=photons,
+                       blpatches=blpatches)
     port_static = SceneStatic(
         texture_kinds=tuple(int(k) for k in static.texture_kinds),
         any_bump=bool(static.any_bump), num_lights=int(static.num_lights),

@@ -71,6 +71,27 @@ class PlanePool:
     valid: torch.Tensor        # (P,) bool
 
 
+@dataclasses.dataclass
+class BLPatchPool:
+    """Bilinear patches (JAX models/geometry.py:84-97; the reference's
+    BLPatch intersect is a stub, BLPatch.cpp:19-24, and both packages
+    implement it: ops/intersect.py:intersect_blpatches). Corners:
+    S(u,v) = (1-u)(1-v) p00 + u(1-v) p10 + (1-u)v p01 + uv p11."""
+    p00: torch.Tensor          # (B, 3)
+    p10: torch.Tensor          # (B, 3)
+    p01: torch.Tensor          # (B, 3)
+    p11: torch.Tensor          # (B, 3)
+    material_id: torch.Tensor  # (B,) int32
+    valid: torch.Tensor        # (B,) bool
+
+    def replace(self, **kw) -> "BLPatchPool":
+        return dataclasses.replace(self, **kw)
+
+    def to(self, device) -> "BLPatchPool":
+        return BLPatchPool(**{f.name: getattr(self, f.name).to(device)
+                              for f in dataclasses.fields(self)})
+
+
 def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
     pad = n - x.shape[0]
     if pad <= 0:
@@ -226,6 +247,27 @@ def make_plane_pool(origins, normals, material_ids, device=None) -> PlanePool:
                      material_id=t(mids),
                      valid=torch.ones(origins.shape[0], dtype=torch.bool,
                                       device=device))
+
+
+def make_blpatch_pool(p00, p10, p01, p11, material_ids,
+                      device=None) -> BLPatchPool:
+    """BLPatchPool of one patch per corner row (JAX models/geometry.py:
+    269-274)."""
+    device = resolve_device(device)
+    f = lambda x: torch.as_tensor(np.atleast_2d(np.asarray(x, np.float32)),
+                                  device=device)
+    mids = np.atleast_1d(np.asarray(material_ids, np.int32))
+    return BLPatchPool(p00=f(p00), p10=f(p10), p01=f(p01), p11=f(p11),
+                       material_id=torch.as_tensor(mids, device=device),
+                       valid=torch.ones(len(mids), dtype=torch.bool,
+                                        device=device))
+
+
+def empty_blpatch_pool(device=None) -> BLPatchPool:
+    """One invalid patch (JAX models/geometry.py:277-282)."""
+    pool = make_blpatch_pool(*([(0.0, 0.0, 0.0)] * 4), [0], device)
+    pool.valid.zero_()
+    return pool
 
 
 def empty_sphere_pool(device=None) -> SpherePool:

@@ -2,8 +2,8 @@
 
 Counterpart of cse168_raytracer_tpu/models/scene.py: the geometry
 pools, material and light tables, environment, image textures,
-cellular textures and the photon maps (ops/photon.py) in one
-dataclass, plus
+cellular textures, the photon maps (ops/photon.py) and the bilinear
+patches (JAX models/scene.py:48-49,72,89) in one dataclass, plus
 `SceneStatic`, the host-known facts that select code paths (texture
 kinds present, bump maps, light count, reflective / refractive
 materials).
@@ -17,7 +17,8 @@ from typing import TYPE_CHECKING, Optional, Sequence, Tuple
 import torch
 
 from cse168_raytracer_tpu_torch.config import resolve_device
-from cse168_raytracer_tpu_torch.models.geometry import (PlanePool, SpherePool,
+from cse168_raytracer_tpu_torch.models.geometry import (BLPatchPool,
+                                                        PlanePool, SpherePool,
                                                         TrianglePack,
                                                         empty_plane_pool,
                                                         empty_sphere_pool,
@@ -52,6 +53,8 @@ class Scene:
     accel: Optional[object] = None
     # photon grids (global, caustic) built by ops/photon.py, or None
     photons: Optional["PhotonMaps"] = None
+    # bilinear patches, traced after the planes, or None
+    blpatches: Optional[BLPatchPool] = None
 
     def replace(self, **kw) -> "Scene":
         return dataclasses.replace(self, **kw)
@@ -88,6 +91,7 @@ def make_scene(tris: Optional[TrianglePack] = None,
                env: Optional[Environment] = None,
                images: Sequence[ImageTexture] = (),
                cellulars: Sequence[CellularTexture] = (),
+               blpatches: Optional[BLPatchPool] = None,
                device=None) -> tuple[Scene, SceneStatic]:
     device = resolve_device(device)
     if tris is None:
@@ -104,5 +108,6 @@ def make_scene(tris: Optional[TrianglePack] = None,
         env = make_environment(device=device)
     scene = Scene(tris=tris, spheres=spheres, planes=planes,
                   materials=materials, lights=light_table, env=env,
-                  images=tuple(images), cellulars=tuple(cellulars))
+                  images=tuple(images), cellulars=tuple(cellulars),
+                  blpatches=blpatches)
     return scene, make_static(materials, light_table)

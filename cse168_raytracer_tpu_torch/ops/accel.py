@@ -45,6 +45,7 @@ from cse168_raytracer_tpu_torch.ops import (binary_bvh, bvh, forest, packet,
                                             tri_blocks, wide_bvh)
 from cse168_raytracer_tpu_torch.ops.intersect import (PRIM_TRI, _BIG, _hit,
                                                       _merge,
+                                                      intersect_blpatches,
                                                       intersect_planes,
                                                       intersect_spheres)
 from cse168_raytracer_tpu_torch.ops.pluecker import triangle_t
@@ -379,28 +380,38 @@ def _triangles_occluded(accel, o, d, tmin, tmax, with_stats: bool):
 
 
 def scene_closest_hit(accel, spheres, planes, o, d, tmin=0.0,
-                      tmax=MIRO_TMAX, with_stats: bool = False):
+                      tmax=MIRO_TMAX, with_stats: bool = False,
+                      blpatches=None):
     """Scene::trace with an accelerator (Scene.cpp:214-231): triangles
-    through the traversal, then spheres and planes. Returns (Hit, attr),
-    attr being the (N, 32) rows of the triangle winners where the
-    traversal extracts them (supports_kernel_attr) and None elsewhere;
-    with_stats appends the traversal's per-ray box and triangle tests
-    (N,) int32 (JAX ops/accel.py:247-283: spheres and planes are not
+    through the traversal, then spheres, planes and the bilinear patches
+    (JAX ops/accel.py:274-278, the patches last, so the first primitive
+    wins a tie; the patch t keeps its gradient, JAX
+    ops/pallas_bvh.py:581-592). Returns (Hit, attr), attr being the
+    (N, 32) rows of the triangle winners where the traversal extracts
+    them (supports_kernel_attr) and None elsewhere; with_stats appends
+    the traversal's per-ray box and triangle tests (N,) int32 (JAX
+    ops/accel.py:247-283: spheres, planes and patches are not
     counted)."""
     t, ids, attr, *tests = _triangles_closest(accel, o, d, tmin, tmax,
                                               with_stats)
     h = _hit(t, ids, PRIM_TRI)
     h = _merge(h, intersect_spheres(spheres, o, d, tmin, tmax))
     h = _merge(h, intersect_planes(planes, o, d, tmin, tmax))
+    if blpatches is not None:
+        h = _merge(h, intersect_blpatches(blpatches, o, d, tmin, tmax))
     return (h, attr, *tests)
 
 
 def scene_any_hit(accel, spheres, planes, o, d, tmin=0.0, tmax=MIRO_TMAX,
-                  with_stats: bool = False):
-    """Boolean shadow occlusion across all primitive pools; with_stats
-    (occluded, box tests, triangle tests) as scene_closest_hit counts
-    them (JAX ops/accel.py:414-449)."""
+                  with_stats: bool = False, blpatches=None):
+    """Boolean shadow occlusion across all primitive pools, the bilinear
+    patches last and without a gradient (JAX ops/accel.py:414-449,
+    ops/pallas_bvh.py:601-610); with_stats (occluded, box tests,
+    triangle tests) as scene_closest_hit counts them."""
     occ, *tests = _triangles_occluded(accel, o, d, tmin, tmax, with_stats)
     occ = occ | intersect_spheres(spheres, o, d, tmin, tmax).hit
     occ = occ | intersect_planes(planes, o, d, tmin, tmax).hit
+    if blpatches is not None:
+        with torch.no_grad():
+            occ = occ | intersect_blpatches(blpatches, o, d, tmin, tmax).hit
     return (occ, *tests) if with_stats else occ

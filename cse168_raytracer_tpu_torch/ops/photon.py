@@ -53,7 +53,8 @@ from cse168_raytracer_tpu_torch.config import (EPSILON, PI, RenderConfig,
 from cse168_raytracer_tpu_torch.core.fastgather import take_rows
 from cse168_raytracer_tpu_torch.core.noise import floor_i32
 from cse168_raytracer_tpu_torch.core.sampling import (cosine_hemisphere,
-                                                      phong_lobe, uniform)
+                                                      fold_seed, phong_lobe,
+                                                      stream, uniform)
 from cse168_raytracer_tpu_torch.core.vecmath import (dot, fresnel_rs, reflect,
                                                      refract, safe_normalize)
 from cse168_raytracer_tpu_torch.models.lights import (LIGHT_DIRECTIONAL_AREA,
@@ -495,6 +496,35 @@ def draw_trace_photon_batch(scene: Scene, static: SceneStatic, light_i: int,
                               u)
 
 
+def trace_photon_batch_sharded(scene: Scene, static: SceneStatic,
+                               light_i: int, n_emit: int, caustic: bool,
+                               depth_limit: int, path_tracing: bool,
+                               seed: int, mesh) -> StoredBatch:
+    """Photon emission sharded over a mesh (JAX ops/photon.py:429-466,
+    the reference's OpenMP photon batches, Scene.cpp:372-394): shard s
+    traces ceil(n_emit / shards) photons from a generator seeded with
+    core/sampling.fold_seed(seed, s). The per-level arrays are
+    concatenated along the photon axis in shard order, across the
+    processes by an all-gather (every process holds the same number of
+    shards, so each contributes equal (L, photons) slabs); the bounce
+    counters are summed."""
+    # parallel/__init__ imports the integrator, which imports this module
+    from cse168_raytracer_tpu_torch.parallel.distributed import (
+        all_gather_cat, all_reduce_sum)
+    per = -(-n_emit // mesh.n_shards)
+    outs = [draw_trace_photon_batch(scene, static, light_i, per, caustic,
+                                    depth_limit, path_tracing,
+                                    stream(seed, s, scene.device))
+            for s in mesh.local_shards]
+    cat = lambda f: all_gather_cat(torch.cat([getattr(o, f) for o in outs],
+                                             1), mesh, 1)
+    mask = all_gather_cat(torch.cat([o.mask for o in outs], 1).to(
+        torch.uint8), mesh, 1).bool()
+    return StoredBatch(pos=cat("pos"), dir=cat("dir"), power=cat("power"),
+                       mask=mask, bounces=all_reduce_sum(
+                           sum(o.bounces for o in outs), mesh))
+
+
 def _auto_radius(pos: np.ndarray, k_target: int, max_per_cell: int) -> float:
     """The gather radius at which a typical disc holds about k_target
     photons (JAX ops/photon.py:466-495, the same numpy): each of m <=
@@ -520,7 +550,7 @@ def _auto_radius(pos: np.ndarray, k_target: int, max_per_cell: int) -> float:
 def build_photon_maps(scene: Scene, static: SceneStatic, cfg: RenderConfig,
                       gen: torch.Generator,
                       path_tracing: Optional[bool] = None,
-                      return_stats: bool = False):
+                      return_stats: bool = False, mesh=None):
     """Scene::tracePhotons + traceCausticPhotons (JAX ops/photon.py:
     498-602): per map, batches from each directional-area light until
     it has stored the target (or cfg.photon_max_batches), the stored
@@ -531,7 +561,11 @@ def build_photon_maps(scene: Scene, static: SceneStatic, cfg: RenderConfig,
     the host between batches, so no gradient flows through emission,
     while the gather is differentiable in the stored powers. None (and
     {} stats) when no light emits. return_stats adds each map's
-    emitted, stored, bounces and stored_per_level counts."""
+    emitted, stored, bounces and stored_per_level counts. With `mesh`
+    (parallel/distributed.Mesh) each batch is sharded over it
+    (trace_photon_batch_sharded; the batch rounded up to a multiple of
+    the shard count): batch b is seeded with fold_seed(base, b), base
+    one draw from gen, so every process builds the same maps."""
     if path_tracing is None:
         path_tracing = cfg.path_tracing
     emitters = [i for i, k in enumerate(scene.lights.kinds)
@@ -540,6 +574,11 @@ def build_photon_maps(scene: Scene, static: SceneStatic, cfg: RenderConfig,
         return (None, {}) if return_stats else None
     dev = scene.device
     batch = 65536 if dev.type == "cuda" else 10000
+    if mesh is not None:
+        batch = -(-batch // mesh.n_shards) * mesh.n_shards
+        base = int(torch.randint(1 << 62, (1,), generator=gen,
+                                 device=gen.device))
+    n_batches = 0
     maps = {}
     stats = {}
     for caustic, target in ((False, cfg.photons_per_light),
@@ -556,9 +595,16 @@ def build_photon_maps(scene: Scene, static: SceneStatic, cfg: RenderConfig,
             li_stored = 0
             it = 0
             while li_stored < target and it < cfg.photon_max_batches:
-                out = draw_trace_photon_batch(
-                    scene, static, li, batch, caustic,
-                    cfg.trace_depth_photons, path_tracing, gen)
+                if mesh is None:
+                    out = draw_trace_photon_batch(
+                        scene, static, li, batch, caustic,
+                        cfg.trace_depth_photons, path_tracing, gen)
+                else:
+                    out = trace_photon_batch_sharded(
+                        scene, static, li, batch, caustic,
+                        cfg.trace_depth_photons, path_tracing,
+                        fold_seed(base, n_batches), mesh)
+                n_batches += 1
                 m = out.mask.reshape(-1)
                 all_pos.append(out.pos.reshape(-1, 3)[m].cpu().numpy())
                 all_dir.append(out.dir.reshape(-1, 3)[m].cpu().numpy())

@@ -58,11 +58,11 @@ def _closest(scene: Scene, o, d, tmin, tmax, with_stats: bool = False):
     if scene.accel is not None:
         hit, attr, *tests = scene_closest_hit(
             scene.accel, scene.spheres, scene.planes, o, d, tmin, tmax,
-            with_stats)
+            with_stats, blpatches=scene.blpatches)
         counts = tuple(_sum(x) for x in tests)
     else:
         hit, attr = closest_hit(scene.tris, scene.spheres, scene.planes, o,
-                                d, tmin, tmax), None
+                                d, tmin, tmax, scene.blpatches), None
         zero = torch.zeros((), dtype=torch.int64, device=o.device)
         counts = (zero, zero) if with_stats else ()
     return (hit, attr, *counts)
@@ -73,9 +73,10 @@ def _any(scene: Scene, o, d, tmax, with_stats: bool):
     (box tests, triangle tests)."""
     if not with_stats:
         return (scene_any_hit(scene.accel, scene.spheres, scene.planes, o, d,
-                              0.0, tmax),)
+                              0.0, tmax, blpatches=scene.blpatches),)
     occ, box, tri = scene_any_hit(scene.accel, scene.spheres, scene.planes,
-                                  o, d, 0.0, tmax, with_stats=True)
+                                  o, d, 0.0, tmax, with_stats=True,
+                                  blpatches=scene.blpatches)
     return occ, _sum(box), _sum(tri)
 
 
@@ -86,7 +87,7 @@ def trace_closest(scene: Scene, static: SceneStatic, o, d, tmin=0.0,
     (box tests, triangle tests) as a third item."""
     hit, attr, *counts = _closest(scene, o, d, tmin, tmax, collect_stats)
     surf = make_surface(scene.tris, scene.spheres, scene.planes, o, d, hit,
-                        tri_attr=attr)
+                        tri_attr=attr, blpatches=scene.blpatches)
     surf.n = apply_bump(scene, static, surf)
     return (hit, surf, tuple(counts)) if collect_stats else (hit, surf)
 
@@ -175,7 +176,8 @@ def shade_direct(scene: Scene, static: SceneStatic, ray_d: torch.Tensor,
                         # refractive occluders attenuate instead of block
                         sh_surf = make_surface(scene.tris, scene.spheres,
                                                scene.planes, sh_o, sh_d,
-                                               sh_hit, tri_attr=sh_attr)
+                                               sh_hit, tri_attr=sh_attr,
+                                               blpatches=scene.blpatches)
                         occ_refr = is_refractive(mats, sh_surf.material_id)
                         occ_ndl = dot(safe_normalize(sh_surf.n), s.l)
                         pass_through = (occluded & occ_refr

@@ -251,6 +251,39 @@ def block_ray_order(width: int, height: int):
     return xs, ys
 
 
+def render_hdr_band(scene: Scene, static: SceneStatic, cam: Camera,
+                    cfg: RenderConfig, gen: Optional[torch.Generator],
+                    y0: int, n_rows: int):
+    """Rows [y0, y0 + n_rows) of the deterministic (Whitted) render
+    (JAX render/integrator.py:285-319), for chunking a frame into
+    separate calls. The 16x8 block order is built band-local and its
+    rows offset by y0 (the order is translation-invariant for 8-aligned
+    bands); pixel ids are band-local. gen draws square-light origins
+    (None: seeded from cfg.seed on the scene's device). Returns
+    ((n_rows, w, 3) linear HDR in image row order, RenderStats); bands
+    stacked over the frame give render_hdr's image."""
+    w = cfg.width
+    if n_rows % 8 or w % 16:
+        raise ValueError("a band needs whole 16x8 blocks: n_rows a "
+                         "multiple of 8 and the width of 16")
+    dev = scene.device
+    if gen is None:
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    xs_n, ys_n = block_ray_order(w, n_rows)
+    xs = torch.tensor(xs_n, device=dev)
+    ys_local = torch.tensor(ys_n, device=dev)
+    pixel = ys_local * w + xs
+    o, d = eye_rays(cam, xs, ys_local + y0, w, cfg.height)
+    radiance, stats = integrate(
+        scene, static, o, d, pixel, n_rows * w, cfg.trace_depth, gen=gen,
+        collect_stats=cfg.collect_stats,
+        disable_shadows=cfg.disable_shadows,
+        light_samples=cfg.light_samples, ray_order=True)
+    radiance = (radiance.reshape(n_rows // 8, w // 16, 8, 16, 3)
+                .permute(0, 2, 1, 3, 4).reshape(n_rows, w, 3))
+    return radiance, stats
+
+
 def render_hdr(scene: Scene, static: SceneStatic, cam: Camera,
                cfg: RenderConfig, gen: Optional[torch.Generator] = None):
     """Scene::raytraceImage before the tonemap (Scene.cpp:93-173).

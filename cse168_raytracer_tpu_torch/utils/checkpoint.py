@@ -1,16 +1,27 @@
-"""Photon-map checkpoints.
+"""Photon-map and render-state checkpoints.
 
-Counterpart of cse168_raytracer_tpu/utils/checkpoint.py:24-67
-(save_photon_maps / load_photon_maps): one .npz with the JAX package's
-keys, so a file written by either package loads in the other. Per map
-("g" global, "c" caustic): pos, power, dir, hash, weight and meta
-(radius, n_valid, table_size, max_per_cell, knn). The format keeps no
-coarse level, so a loaded map has coarse=None, as in the JAX package.
-The render state of progressive renders is not ported yet (ROADMAP
-item A24).
+Counterpart of cse168_raytracer_tpu/utils/checkpoint.py.
+
+Photon maps (:24-67, save_photon_maps / load_photon_maps): one .npz with
+the JAX package's keys, so a file written by either package loads in
+the other. Per map ("g" global, "c" caustic): pos, power, dir, hash,
+weight and meta (radius, n_valid, table_size, max_per_cell, knn). The
+format keeps no coarse level, so a loaded map has coarse=None, as in
+the JAX package.
+
+Render state (:70-82, save_render_state / load_render_state): the
+progressive render's accumulator `accum` (pixels, 3), `samples_done`
+(the JAX names) and the render's integer `seed`. The JAX package keeps
+a jax.random key instead; torch.Generator cannot continue that stream,
+so the port's sample i draws from a generator seeded with
+core/sampling.fold_seed(seed, i) and the file holds no generator
+state: a render resumes alike on the card and on the CPU. A file
+without `seed` (one the JAX package wrote) raises ValueError.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -68,3 +79,26 @@ def load_photon_maps(path: str, device=None):
             knn=int(meta[4]) if meta.shape[0] > 4 else 500)
 
     return PhotonMaps(global_map=grid("g"), caustic_map=grid("c"))
+
+
+def save_render_state(path: str, accum: torch.Tensor, samples_done: int,
+                      seed: int) -> None:
+    """Write the progressive render's state (the accumulator is read
+    back from its device, which waits for it)."""
+    np.savez_compressed(path, accum=_np(accum),
+                        samples_done=np.int64(samples_done),
+                        seed=np.int64(seed))
+
+
+def load_render_state(path: str, device=None):
+    """(accum on `device` (None: the card), samples_done, seed) from a
+    file save_render_state wrote, or None when there is no file."""
+    if not os.path.exists(path):
+        return None
+    z = np.load(path)
+    if "seed" not in z:
+        raise ValueError(f"{path} holds no seed: it was not written by "
+                         "this package (the JAX package's random key "
+                         "cannot be continued here)")
+    accum = torch.as_tensor(z["accum"], device=resolve_device(device))
+    return accum, int(z["samples_done"]), int(z["seed"])

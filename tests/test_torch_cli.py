@@ -5,6 +5,7 @@ The command line runs in-process through cli.main on the CPU
 struct alone; the tonemaps are held against the JAX package's."""
 
 import struct
+import sys
 import zlib
 
 import numpy as np
@@ -117,17 +118,147 @@ def test_cli_scenes(capsys):
     assert names == sorted(JAX_SCENES) and len(names) == 16
 
 
-@pytest.mark.parametrize("extra", [
-    ["--sharded"],
-    ["--coordinator", "localhost:1234"], ["--num-processes", "2"],
-    ["--progressive"], ["--checkpoint", "c.npz"], ["view"], ["window"]])
-def test_cli_unported_options_exit_nonzero(extra, capsys, tmp_path):
-    argv = (extra + ["--scene", "sphere"] if extra[0] in ("view", "window")
-            else ["render", "--scene", "sphere", "--device", "cpu",
-                  "--out", str(tmp_path / "x.png")] + extra)
-    assert cli.main(argv) == 2
-    assert "ROADMAP item A2" in capsys.readouterr().err
-    assert not (tmp_path / "x.png").exists()
+CLI16 = ["--scene", "sphere", "--device", "cpu", "--width", "16",
+         "--height", "16", "--depth", "2"]
+
+
+def test_cli_sharded_equals_plain_render(tmp_path, capsys):
+    """--sharded (one process, one shard) writes the plain render's
+    image; --bench times a second, steady-state frame."""
+    plain, shard = str(tmp_path / "p.ppm"), str(tmp_path / "s.ppm")
+    assert cli.main(["render"] + CLI16 + ["--out", plain]) == 0
+    res = cli.render(cli.parser().parse_args(
+        ["render"] + CLI16 + ["--sharded", "--bench", "--out", shard]))
+    err = capsys.readouterr().err
+    assert "[mesh] 1 shard(s), one process; this is rank 0 on cpu" in err
+    assert "[render] steady-state" in err and res["steady_s"] > 0
+    assert res["rc"] == 0 and res["mesh"].n_shards == 1
+    np.testing.assert_array_equal(load_ppm(shard), load_ppm(plain))
+
+
+def two_ranks(tmp_path, extra, rc=0):
+    """`cli render` of CLI16 + extra in two processes joined through
+    --coordinator/--num-processes/--process-id; rank i writes
+    r<i>.ppm. Returns their outputs."""
+    from test_torch_parallel import free_port, run_ranks
+    coord = f"127.0.0.1:{free_port()}"
+    return run_ranks(lambda pid: [
+        sys.executable, "-m", "cse168_raytracer_tpu_torch.cli", "render"]
+        + CLI16 + extra + ["--coordinator", coord, "--num-processes", "2",
+                           "--process-id", str(pid),
+                           "--out", str(tmp_path / f"r{pid}.ppm")], 2, rc=rc)
+
+
+def test_cli_sharded_height_must_divide(tmp_path):
+    """Two processes, one shard each, and a height of 17: both exit 2
+    with the JAX command line's message and write nothing."""
+    outs = two_ranks(tmp_path, ["--height", "17", "--sharded"], rc=2)
+    for o in outs:
+        assert ("--height 17 must be divisible by the device count (2)"
+                in o), o
+    assert not list(tmp_path.glob("*.ppm"))
+
+
+def test_cli_two_processes(tmp_path):
+    """Two ranks joined by --coordinator/--num-processes/--process-id
+    over gloo (the CPU's backend) render sharded without --sharded: rank
+    0 writes the one-process 2-shard image, bit for bit, and rank 1
+    writes nothing."""
+    from cse168_raytracer_tpu_torch.parallel.sharding import (
+        make_mesh, render_hdr_sharded)
+    outs = two_ranks(tmp_path, [])
+    assert "[mesh] 2 shard(s), 2 processes over gloo; this is rank 1" in outs[1]
+    assert not (tmp_path / "r1.ppm").exists()
+    scene, static, cam, cfg = registry.build(
+        "sphere", RenderConfig(width=16, height=16, trace_depth=2),
+        device="cpu")
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    with torch.no_grad():
+        hdr = render_hdr_sharded(attach_accel(scene), static, cam, cfg,
+                                 make_mesh(2, "cpu"))
+    one = ttm.to_bytes(ttm.sigmoid_tonemap(hdr)).numpy()[::-1]
+    np.testing.assert_array_equal(load_ppm(tmp_path / "r0.ppm"), one)
+
+
+def test_cli_progressive_checkpoint_resume(tmp_path, capsys):
+    """--progressive --checkpoint: a 2-sample run, then the 4-sample run
+    resumes from its file and writes the straight run's image."""
+    ckpt = str(tmp_path / "state.npz")
+    base = ["render"] + CLI16 + ["--progressive", "--path-tracing"]
+    assert cli.main(base + ["--spp", "4", "--out",
+                            str(tmp_path / "full.ppm")]) == 0
+    assert cli.main(base + ["--spp", "2", "--checkpoint", ckpt,
+                            "--out", str(tmp_path / "half.ppm")]) == 0
+    capsys.readouterr()
+    assert cli.main(base + ["--spp", "4", "--checkpoint", ckpt,
+                            "--out", str(tmp_path / "res.ppm")]) == 0
+    assert "[progressive] resumed at 2/4 samples" in capsys.readouterr().err
+    np.testing.assert_array_equal(load_ppm(tmp_path / "res.ppm"),
+                                  load_ppm(tmp_path / "full.ppm"))
+
+
+def test_cli_checkpoint_every(tmp_path, monkeypatch):
+    from cse168_raytracer_tpu_torch.render import progressive
+    saves = []
+    monkeypatch.setattr(progressive, "save_render_state",
+                        lambda p, a, done, seed: saves.append(done))
+    assert cli.main(["render"] + CLI16 + [
+        "--progressive", "--spp", "7", "--checkpoint",
+        str(tmp_path / "c.npz"), "--checkpoint-every", "3",
+        "--out", str(tmp_path / "x.ppm")]) == 0
+    assert saves == [3, 6, 7]
+
+
+def test_cli_view_writes_the_preview(tmp_path, capsys):
+    out = tmp_path / "preview.ppm"
+    assert cli.main(["view", "--scene", "sphere", "--device", "cpu",
+                     "--width", "16", "--height", "16", "--spp", "3",
+                     "--out", str(out)]) == 0
+    err = capsys.readouterr().err
+    assert "[view] 1/3 spp" in err and "[view] 3/3 spp" in err
+    assert load_ppm(out).shape == (16, 16, 3) and load_ppm(out).any()
+
+
+def test_cli_window_opens_the_viewer(monkeypatch):
+    from cse168_raytracer_tpu_torch.render import viewer
+    opened = []
+    monkeypatch.setattr(viewer.InteractiveViewer, "main_loop",
+                        lambda self: opened.append(self))
+    assert cli.main(["window", "--scene", "sphere", "--device", "cpu",
+                     "--width", "32", "--height", "24", "--depth", "3"]) == 0
+    (v,) = opened
+    assert (v.cfg.width, v.cfg.height, v.cfg.trace_depth) == (32, 24, 3)
+    assert v.scene.accel is not None
+    assert v.render_frame().shape == (24, 32, 3)
+
+
+def test_cli_has_every_jax_option():
+    """Every option of the JAX command line's render, view and window
+    parsers parses in the port's."""
+    import argparse
+    from cse168_raytracer_tpu import cli as jcli
+    seen = {}
+    real = argparse.ArgumentParser.parse_args
+
+    def grab(self, *a, **kw):
+        seen["parser"] = self
+        raise SystemExit(0)
+
+    argparse.ArgumentParser.parse_args = grab
+    try:
+        with pytest.raises(SystemExit):
+            jcli.main(["scenes"])
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    jsub = next(a for a in seen["parser"]._actions
+                if isinstance(a, argparse._SubParsersAction))
+    tsub = next(a for a in cli.parser()._actions
+                if isinstance(a, argparse._SubParsersAction))
+    assert set(jsub.choices) == set(tsub.choices)
+    for cmd, jp in jsub.choices.items():
+        flags = {f for a in tsub.choices[cmd]._actions for f in a.option_strings}
+        for a in jp._actions:
+            assert set(a.option_strings) <= flags, (cmd, a.option_strings)
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -192,6 +323,9 @@ def _constructors():
         "empty_sphere_pool": lambda **kw: geometry.empty_sphere_pool(**kw),
         "empty_plane_pool": lambda **kw: geometry.empty_plane_pool(**kw),
         "empty_triangle_pack": lambda **kw: geometry.empty_triangle_pack(**kw),
+        "make_blpatch_pool": lambda **kw: geometry.make_blpatch_pool(
+            [(0, 0, 0)], [(1, 0, 0)], [(0, 0, 1)], [(1, 1, 1)], [0], **kw),
+        "empty_blpatch_pool": lambda **kw: geometry.empty_blpatch_pool(**kw),
         "make_environment": lambda **kw: make_environment(**kw),
         "interop.camera_from_numpy": lambda **kw: interop.camera_from_numpy(
             cam_np, **kw),
@@ -216,9 +350,10 @@ def _tensors(obj):
 
 CONSTRUCTORS = ("MaterialBuilder.build", "build_grid",
                 "build_pack_from_arrays", "camera_from_arrays",
-                "empty_plane_pool", "empty_sphere_pool",
-                "empty_triangle_pack", "interop.camera_from_numpy",
-                "interop.scene_from_numpy", "light_table_from_arrays",
+                "empty_blpatch_pool", "empty_plane_pool",
+                "empty_sphere_pool", "empty_triangle_pack",
+                "interop.camera_from_numpy", "interop.scene_from_numpy",
+                "light_table_from_arrays", "make_blpatch_pool",
                 "make_camera", "make_environment", "make_light_table",
                 "make_plane_pool", "make_scene", "make_sphere_pool",
                 "pack_triangles")

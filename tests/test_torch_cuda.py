@@ -5,7 +5,8 @@ the block brute force (K6), each against its plain PyTorch version; and
 the textured path on the card against the CPU (Worley's tie order, and a
 textured, bump-mapped mesh rendered through K1); and the photon path on
 the card against the CPU (the gather's radii bit for bit, photon tracing
-on the same uniforms).
+on the same uniforms); and bilinear patches and a row-sharded render on
+the card.
 
 These tests need an NVIDIA GPU and the CUDA toolkit; without a GPU they
 skip. They import neither jax nor the JAX package, so they run on a
@@ -443,3 +444,59 @@ def test_photon_trace_card_matches_cpu(cuda):
                                getattr(b, f)[both], rtol=1e-4,
                                atol=1e-4).all(-1)
             assert float(ok.float().mean()) >= TRACE_CLOSE, f
+
+
+def random_patches(n, seed):
+    """n curved bilinear patches, corners jittered off a grid of unit
+    squares in the y = 0 plane."""
+    rng = np.random.default_rng(seed)
+    base = np.stack(np.meshgrid(np.arange(4), np.arange(n // 4),
+                                indexing="ij"), -1).reshape(-1, 2)[:n] - 2.0
+    corners = []
+    for du, dv in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xz = base + [du, dv]
+        corners.append(np.stack([xz[:, 0], rng.uniform(-0.4, 0.4, n),
+                                 xz[:, 1]], -1).astype(np.float32))
+    return corners
+
+
+def test_blpatch_intersection_card_matches_cpu(cuda):
+    """intersect_blpatches on 65,536 rays x 16 patches: the card's hits
+    and ids equal the CPU's, t within rtol 1e-5."""
+    from cse168_raytracer_tpu_torch.models.geometry import make_blpatch_pool
+    from cse168_raytracer_tpu_torch.ops.intersect import intersect_blpatches
+    corners = random_patches(16, 0)
+    rng = np.random.default_rng(1)
+    n = 65_536
+    o = rng.uniform([-3, 2, -3], [3, 4, 3], (n, 3)).astype(np.float32)
+    aim = rng.uniform([-2.5, -0.5, -2.5], [2.5, 0.5, 2.5], (n, 3))
+    d = ((aim - o) / np.linalg.norm(aim - o, axis=1,
+                                    keepdims=True)).astype(np.float32)
+    hits = []
+    for dev in ("cpu", cuda):
+        pool = make_blpatch_pool(*corners, np.arange(16), device=dev)
+        hits.append(intersect_blpatches(pool, torch.as_tensor(o, device=dev),
+                                        torch.as_tensor(d, device=dev),
+                                        0.0, 1e12))
+    cpu, card = hits
+    assert torch.equal(card.hit.cpu(), cpu.hit) and cpu.hit.float().mean() > 0.3
+    assert torch.equal(card.prim_id.cpu()[cpu.hit], cpu.prim_id[cpu.hit])
+    torch.testing.assert_close(card.t.cpu(), cpu.t, rtol=1e-5, atol=0)
+
+
+def test_sharded_render_card_equals_render_hdr(cuda):
+    """A 2-shard render_hdr_sharded of test_sphere on the card equals the
+    card's render_hdr (Whitted: rtol 1e-5)."""
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.parallel.sharding import (
+        make_mesh, render_hdr_sharded)
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    from cse168_raytracer_tpu_torch.scenes import build
+    cfg = RenderConfig(width=64, height=64, trace_depth=4)
+    scene, static, cam, cfg = build("test_sphere", cfg, device=cuda)
+    with torch.no_grad():
+        ref, _ = render_hdr(scene, static, cam, cfg)
+        shd = render_hdr_sharded(scene, static, cam, cfg,
+                                 make_mesh(2, cuda))
+    assert shd.device.type == "cuda" and float(ref.max()) > 0
+    torch.testing.assert_close(shd, ref, rtol=1e-5, atol=1e-6)
