@@ -15,11 +15,11 @@ port's main path (sponza_proxy at 512x512, trace depth 4, forward and
 backward of sum(render_hdr) with respect to the material table kd, as
 bench.py does for the JAX package; once as registered and once with its
 light moved inside the atrium, see lit_sponza) (phase 4); checks the
-card's renders against the CPU's, Whitted and path-traced, and the
-path-traced children on the card's own generator (phase 5); holds the
-kernel, with and without its counters (K3), against its plain PyTorch
-version walk_plain and the per-ray kernel it replaced on every ray of
-the main path, and times all three, the two kernels in turns (phase 6),
+card's renders against the CPU's, Whitted (bit for bit) and
+path-traced, and the path-traced children on the card's own generator
+(phase 5); holds the kernel, with and without its counters (K3),
+against its plain PyTorch version walk_plain on every ray of the main
+path, and times both (phase 6),
 and holds it against walk_plain on phase 3's rays (phase 7); drives the
 command line's `render` on the card at 512x512 with --stats, Whitted
 and path-traced through the thin lens at 16 spp, each as registered and
@@ -33,7 +33,7 @@ with their bounds, against the brute force, and on phase 3's ragged,
 dead-ray and tie cases, (c) a collect_stats render through K5 and
 traversal_stats, (d) a forward render with each of "block", "bvh", "packet" and
 "pallas_forest" against auto's, and (e) the W=8 kernel (K4) on the
-400k-triangle proxy, timed with its bound and beside the per-ray kernel.
+400k-triangle proxy, timed with its bound.
 Phase 10 runs the textures and the registry at 512x512 and the
 registered trace depth: (a) sponza_proxy's mesh written as an OBJ, read
 back by the port's load_obj (vertices bit for bit) and rendered by
@@ -61,8 +61,7 @@ by tests/test_golden.py's bar; (f) `cli render` with --photons,
 Phase 12 runs the rest of the port on lit sponza_proxy at 512x512, depth
 4: (a) 16 curved bilinear patches in a material of their own, the patch
 hits of the primary rays, the forward and fwd+bwd w.r.t. kd and w.r.t.
-the patches' p11 corners, card against CPU at 64x64, and float32 sqrt
-card against CPU (torch.sqrt and the patch test's sqrt_rn); (b)
+the patches' p11 corners, card against CPU at 64x64; (b)
 render_hdr_sharded over local meshes of 1, 2 and 4 shards against
 render_hdr, train_step_sharded's time and its step against the one-shard
 step, and one sharded step through an NCCL process group of world size
@@ -74,6 +73,20 @@ run, and `cli view` at 256x256, 8 spp; (e) InteractiveViewer's preview
 and raytrace frames after keys and drags; (f) build_photon_maps over a
 2-shard mesh on photon_box against phase 11's unsharded build. Phase
 12's K1/K2 launches are added to the kernels line.
+Phase 13 settles how the card rounds: (a) a census of every float32
+elementwise op the renders use (the root, reciprocal, quotients, a
+division by a Python number and vecmath.div_scalar, exp, sin, cos,
+asin, acos, atan2, pow) on 2^20 inputs each, card against CPU and each
+against the correctly rounded value; (b) vecmath.sqrt_rn on all 2^31
+non-negative float32 inputs, on the card and on the CPU, rounded to
+nearest; (c) a level's radiance accumulation with repeated pixels, on
+mixed and on subnormal terms, the integrator's add_in_lane_order on the
+card against the CPU's index_add; (d) the
+Whitted forward of sphere, mixed_scene and refract_spheres at 512x512,
+depths 4 and 10, lit sponza_proxy and test_sphere at 640x480 on the
+card and on the CPU, equal by torch.equal, where a differing pixel
+must trace to a transcendental that ROUNDED_BY_SCENE names for the
+scene (PERF.md section 5 shows the same table).
 Each phase prints its own lines; any failure raises and exits non-zero.
 The second-to-last line is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it
@@ -404,36 +417,6 @@ def time_cuda(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
-def time_turns(new, old, reps, label):
-    """Mean milliseconds of new() and of old() by time_cuda, timed in
-    turns old, new, new, old so that drift in the card's clock or its
-    neighbours' load falls on both."""
-    o1, n1, n2, o2 = (time_cuda(f, reps) for f in (old, new, new, old))
-    log(f"  {label}: in turns per-ray {o1:.3f}, card walk {n1:.3f}, card "
-        f"walk {n2:.3f}, per-ray {o2:.3f} ms")
-    return (n1 + n2) / 2, (o1 + o2) / 2
-
-
-def compare_per_ray(label, bvh, args):
-    """The per-ray kernel (the design the card walk replaced) against the
-    card walk on the same rays, in both modes, with and without
-    counters: every output equal."""
-    import torch
-    from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
-    o, d = args[:2]
-    bounds = wb._bounds(o, *args[2:])
-    for any_hit in (False, True):
-        for stats in (False, True):
-            new = wb._launch(bvh, o, d, *bounds, any_hit, stats)
-            old = wb._launch_per_ray(bvh, o, d, *bounds, any_hit, stats)
-            for a, b in zip(new, old):
-                if a is not None and not torch.equal(a, b):
-                    raise AssertionError(f"{label}: the per-ray kernel and "
-                                         "the card walk differ")
-    log(f"  {label}: per-ray kernel = card walk in every output, both "
-        "modes, with and without counters")
-
-
 def fwd_bwd(scene, static, cam, cfg, gen=None):
     from cse168_raytracer_tpu_torch.render.integrator import render_hdr
     kd = scene.materials.kd.detach().clone().requires_grad_(True)
@@ -519,7 +502,7 @@ def phase_build():
 def ptxas_kernels(text):
     """{kernel: {"registers", "smem", "spill_stores", "spill_loads"}}
     from nvcc's -Xptxas -v report; the kernels named as "traverse_warp
-    W=4 closest", "traverse_per_ray W=8 any stats", "traverse_binary_warp
+    W=4 closest", "traverse_warp W=8 any stats", "traverse_binary_warp
     any stats" or "tri_blocks_test"."""
     import re
     out, cur = {}, None
@@ -528,13 +511,12 @@ def ptxas_kernels(text):
                       r"for) '?([\w$]+)", line)
         if m:
             cur = m.group(1)
-            t = re.search(r"(traverse_warp|traverse_per_ray)ILi(\d)ELb"
-                          r"([01])ELb([01])E", cur)
+            t = re.search(r"traverse_warpILi(\d)ELb([01])ELb([01])E", cur)
             b = re.search(r"traverse_binary_warpILb([01])ELb([01])E", cur)
             if t:
-                cur = (f"{t.group(1)} W={t.group(2)} "
-                       f"{'any' if t.group(3) == '1' else 'closest'}"
-                       + (" stats" if t.group(4) == "1" else ""))
+                cur = (f"traverse_warp W={t.group(1)} "
+                       f"{'any' if t.group(2) == '1' else 'closest'}"
+                       + (" stats" if t.group(3) == "1" else ""))
             elif b:
                 cur = (f"traverse_binary_warp "
                        f"{'any' if b.group(1) == '1' else 'closest'}"
@@ -759,9 +741,12 @@ def stack_line(bvh):
 def phase_card_vs_cpu(device):
     """Phase 5: renders at 64x64 on the card and on the CPU, Whitted and
     path-traced (mixed_scene's glossy mirror and glass spheres spawn
-    lobe-sampled children). The path-traced pair draws from one seeded
-    CPU generator, so both consume the same uniforms; its traversal
-    counters (K3 on the card, walk_plain on the CPU) must agree too."""
+    lobe-sampled children). The Whitted images must be equal bit for
+    bit (phase 13 holds them so at full size); the path-traced pair,
+    whose lobes take sin, cos, acos and pow, draws from one seeded CPU
+    generator, so both consume the same uniforms, and is held by the
+    per-pixel bar; its traversal counters (K3 on the card, walk_plain on
+    the CPU) must agree too."""
     import torch
     from cse168_raytracer_tpu_torch.config import RenderConfig
     from cse168_raytracer_tpu_torch.ops.accel import attach_accel
@@ -787,9 +772,14 @@ def phase_card_vs_cpu(device):
         share = pixel_agreement(card_hdr, cpu_hdr)
         g_err = float((card_g - cpu_g).abs().max()
                       / cpu_g.abs().max().clamp(min=1e-30))
-        log(f"[5 card vs cpu] {name} 64x64: {share * 100:.3f}% of pixels "
-            f"within rtol 1e-4/atol 1e-5; kd-gradient max rel diff "
-            f"{g_err:.3g}; card {card_st}, cpu {cpu_st}")
+        log(f"[5 card vs cpu] {name} 64x64: "
+            f"{pixels_differ(card_hdr, cpu_hdr)} of 4096 pixels differ in "
+            f"their bits, {share * 100:.3f}% within rtol 1e-4/atol 1e-5; "
+            f"kd-gradient max rel diff {g_err:.3g}; card {card_st}, cpu "
+            f"{cpu_st}")
+        if not extra and not torch.equal(card_hdr, cpu_hdr):
+            raise AssertionError(f"{name}: the card's Whitted render is not "
+                                 "the CPU's bit for bit")
         if share < 0.999:
             bad = (~torch.isclose(card_hdr, cpu_hdr, **TOL).all(-1)).nonzero()
             for y, x in bad[:8].tolist():
@@ -872,13 +862,8 @@ def phase_plain_timing(device, main, errs):
         plain = (wb.any_hit_triangles_plain if any_hit
                  else wb.closest_hit_triangles_plain)
         n = args[0].shape[0]
-        compare_per_ray(f"main-path {key} rays", bvh, args)
-        per_ray = lambda stats: wb._launch_per_ray(bvh, *args, any_hit, stats)
-        ms, per_ray_ms = time_turns(lambda: kern(bvh, *args),
-                                    lambda: per_ray(False), 10, mode)
-        stats_ms, stats_per_ray_ms = time_turns(
-            lambda: kern(bvh, *args, with_stats=True), lambda: per_ray(True),
-            10, mode + " with counters")
+        ms = time_cuda(lambda: kern(bvh, *args), 10)
+        stats_ms = time_cuda(lambda: kern(bvh, *args, with_stats=True), 10)
         plain_ms = time_cuda(lambda: plain(bvh, *args), 2)
         stats_plain_ms = time_cuda(lambda: plain(bvh, *args,
                                                  with_stats=True), 2)
@@ -896,15 +881,12 @@ def phase_plain_timing(device, main, errs):
         for counting in (False, True):
             work[(mode, counting)] = traversal_work(bvh, n, any_hit, counting,
                                                     internal, leaves)
-        out[mode] = {"ms": ms, "per_ray_ms": per_ray_ms, "rays": n,
+        out[mode] = {"ms": ms, "rays": n,
                      "plain_ms": plain_ms, "plain_rays": n,
                      **bound(work[(mode, False)])}
-        out["stats_" + mode] = {"ms": stats_ms,
-                                "per_ray_ms": stats_per_ray_ms,
-                                "plain_ms": stats_plain_ms}
+        out["stats_" + mode] = {"ms": stats_ms, "plain_ms": stats_plain_ms}
         log(f"[6 plain timing] {key} rays, {mode}: kernel {ms:.3f} ms, with "
-            f"counters {stats_ms:.3f} ms (per-ray kernel {per_ray_ms:.3f} "
-            f"and {stats_per_ray_ms:.3f} ms), for {n} rays; walk_plain "
+            f"counters {stats_ms:.3f} ms, for {n} rays; walk_plain "
             f"{plain_ms:.1f} ms ({stats_plain_ms:.1f} ms with counts); "
             f"{internal} internal and {leaves} leaf visits "
             f"({internal / n:.3f} and {leaves / n:.3f} per ray); oracle on "
@@ -913,18 +895,16 @@ def phase_plain_timing(device, main, errs):
                f" (all {n} would take ~{est_s:.0f} s, over its "
                f"{PLAIN_BUDGET_S:.0f} s budget)"))
         log(f"[6 bound] {mode}: {bound_line(work[(mode, False)])}; kernel "
-            f"{ms:.3f} ms = {out[mode]['bound_ms'] / ms * 100:.2f}% of bound"
-            f" (per-ray kernel "
-            f"{out[mode]['bound_ms'] / per_ray_ms * 100:.2f}%)")
+            f"{ms:.3f} ms = {out[mode]['bound_ms'] / ms * 100:.2f}% of "
+            "bound")
     both = [work[(m, True)] for m in ("closest", "any")]
     total = {k: sum(w[k] for w in both) for k in both[0]}
     out["stats"] = {
         **{k: out["stats_closest"][k] + out["stats_any"][k]
-           for k in ("ms", "per_ray_ms", "plain_ms")},
+           for k in ("ms", "plain_ms")},
         "rays": 2 * RES * RES, "plain_rays": 2 * RES * RES, **bound(total)}
     log(f"[6 bound] counting, both modes: {bound_line(total)}; kernels "
-        f"{out['stats']['ms']:.3f} ms (per-ray kernels "
-        f"{out['stats']['per_ray_ms']:.3f} ms)")
+        f"{out['stats']['ms']:.3f} ms")
     wb.LAUNCHES.update(saved)
     return out
 
@@ -1507,11 +1487,8 @@ def phase_k4(device, cam, cfg):
     args = (o, d, 0.0, 1e12)
     errs = {"closest": 0.0, "any": 0.0, "stats": 0.0}
     visits = compare_plain("K4 primary rays", bvh, args, errs)
-    compare_per_ray("K4 primary rays", bvh, args)
     n = o.shape[0]
-    ms, per_ray_ms = time_turns(
-        lambda: wb.closest_hit_triangles(bvh, *args),
-        lambda: wb._launch_per_ray(bvh, *args, False), 10, "K4 closest")
+    ms = time_cuda(lambda: wb.closest_hit_triangles(bvh, *args), 10)
     plain_ms = time_cuda(lambda: wb.closest_hit_triangles_plain(bvh, *args),
                          2)
     internal, leaves = visits["closest"]
@@ -1520,13 +1497,12 @@ def phase_k4(device, cam, cfg):
         f"{bvh.n_leaves} leaves, accel build {build_s:.3f} s; "
         f"{stack_line(bvh)}; one fwd+bwd "
         f"step launched {launches}; closest+attr kernel {ms:.3f} ms for {n} "
-        f"primary rays (per-ray kernel {per_ray_ms:.3f} ms), walk_plain "
+        f"primary rays, walk_plain "
         f"{plain_ms:.1f} ms; {internal / n:.3f} "
         f"internal and {leaves / n:.3f} leaf visits per ray")
     log(f"[9e bound] K4: {bound_line(w)}; kernel {ms:.3f} ms = "
-        f"{bound(w)['bound_ms'] / ms * 100:.2f}% of bound (per-ray kernel "
-        f"{bound(w)['bound_ms'] / per_ray_ms * 100:.2f}%)")
-    return {"ms": ms, "per_ray_ms": per_ray_ms, "rays": n,
+        f"{bound(w)['bound_ms'] / ms * 100:.2f}% of bound")
+    return {"ms": ms, "rays": n,
             "plain_ms": plain_ms, "plain_rays": n,
             **bound(w), "launches": launches["closest"] + launches["any"],
             "err": errs["closest"]}
@@ -1731,6 +1707,7 @@ def phase_textured(device, card):
     within2, mean = float(np.mean(diff <= 2)), float(diff.mean())
     over1 = int((diff > 1).any(-1).sum())
     log(f"[10b textured] card vs CPU {TEXTURED_CPU_RES}x{TEXTURED_CPU_RES}: "
+        f"{pixels_differ(card_hdr, cpu_hdr)} pixels differ in their bits; "
         f"{within2 * 100:.3f}% of bytes within +-2, mean |diff| {mean:.4f}, "
         f"{over1} of {diff.shape[0] * diff.shape[1]} pixels and "
         f"{int((diff > 1).sum())} of {diff.size} bytes outside +-1, max "
@@ -2201,7 +2178,8 @@ def phase_photon_cpu(card, scene, static, cam, maps, cpu_scene, cpu_static,
     diff = byte_diff(card_hdr, cpu_hdr)
     within2, mean = float(np.mean(diff <= 2)), float(diff.mean())
     log(f"[11e card vs CPU] {PHOTON_CPU_RES}x{PHOTON_CPU_RES}, depth 10, "
-        f"both maps: {within2 * 100:.3f}% of bytes within +-2, mean |diff| "
+        f"both maps: {pixels_differ(card_hdr, cpu_hdr)} pixels differ in "
+        f"their bits; {within2 * 100:.3f}% of bytes within +-2, mean |diff| "
         f"{mean:.4f}, {int((diff > 1).sum())} of {diff.size} bytes outside "
         f"+-1, max {int(diff.max())} ({time.perf_counter() - t0:.1f} s); "
         f"card {card}")
@@ -2354,7 +2332,8 @@ def golden_or_exact(label, a, b, rtol=1e-5, atol=1e-6):
     import torch
     err = float((a - b).abs().max())
     if torch.allclose(a, b, rtol=rtol, atol=atol):
-        bar = f"rtol {rtol:g} (max |diff| {err:.3g})"
+        bar = (f"rtol {rtol:g} (max |diff| {err:.3g}; {pixels_differ(a, b)} "
+               "pixels differ in their bits)")
     else:
         diff = byte_diff(a, b)
         within2, mean = float(np.mean(diff <= 2)), float(diff.mean())
@@ -2416,16 +2395,6 @@ def phase_patches(device, card):
         f"{float(corner_grad.abs().sum()):.6g}; wide-tree launches "
         f"{launches}; card {card}")
 
-    # the patch test's square root: torch.sqrt against sqrt_rn, card
-    # against CPU, on 2^20 seeded uniforms in [0, 100)
-    from cse168_raytracer_tpu_torch.core.vecmath import sqrt_rn
-    x = torch.rand(1 << 20, generator=torch.Generator().manual_seed(SEED)) * 100
-    sqrt_diff = int((torch.sqrt(x.to(device)).cpu() != torch.sqrt(x)).sum())
-    if not torch.equal(sqrt_rn(x.to(device)).cpu(), sqrt_rn(x)):
-        raise AssertionError("12a: sqrt_rn differs between card and CPU")
-    log(f"[12a patches] float32 torch.sqrt differs between card and CPU on "
-        f"{sqrt_diff} of {x.numel()} uniforms in [0, 100); sqrt_rn on none")
-
     small = cfg.replace(width=PATCH_CPU_RES, height=PATCH_CPU_RES)
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -2437,7 +2406,7 @@ def phase_patches(device, card):
         f"({time.perf_counter() - t0:.1f} s)", card_hdr.cpu(), cpu_hdr)
     return dict(fwd_ms=fwd_ms, kd_ms=kd_ms, corner_ms=corner_ms,
                 patch_hits=n_patch, peak_mib=peak, launches=launches,
-                cpu_bar=bar, sqrt_diff=sqrt_diff)
+                cpu_bar=bar)
 
 
 def phase_sharding(device, card):
@@ -2747,6 +2716,374 @@ def phase_patches_and_parallel(device, card, photon_build_stats):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the rounding census, the root on every input, card = CPU
+# ---------------------------------------------------------------------------
+
+CENSUS_N = 1 << 20        # inputs per op of the census
+ROOT_CHUNK = 1 << 26      # bit patterns per chunk of the exhaustive root
+
+
+def census_magnitudes(rng, n, top=1e6):
+    """n float32 values in [0, top]: one in 16 a zero or a subnormal
+    (random mantissas), the rest log-uniform over [2^-126, top]."""
+    tiny = float(np.finfo(np.float32).tiny)
+    x = np.exp(rng.uniform(np.log(tiny), np.log(top), n)).astype(np.float32)
+    k = n // 16
+    x[:k] = rng.integers(0, 1 << 23, k).astype(np.int32).view(np.float32)
+    x[0] = 0.0
+    rng.shuffle(x)
+    return x
+
+
+def census_cases(rng, n):
+    """(name, float32 inputs, the port's torch op, the float64 reference)
+    for every float32 elementwise op the port's renders use, over the
+    ranges the renders feed it. The reference rounded once to float32 is
+    the correctly rounded result for the root, the quotients and the
+    products (53 >= 2 * 24 + 2 bits); for the transcendentals it is the
+    float64 library's value rounded once, right but for double rounding."""
+    import torch
+    from cse168_raytracer_tpu_torch.core.vecmath import div_scalar, sqrt_rn
+    mag = census_magnitudes(rng, n)
+    sign = np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+    signed = mag * sign
+    nonzero = census_magnitudes(rng, n)
+    nonzero[nonzero == 0] = 1.0
+    unit = rng.uniform(-1.0, 1.0, n).astype(np.float32)
+    angle = np.concatenate([rng.uniform(-2 * np.pi, 2 * np.pi, n // 2),
+                            rng.uniform(-1e4, 1e4, n - n // 2)]
+                           ).astype(np.float32)
+    f32 = lambda c: np.float64(np.float32(c))
+    cases = [
+        ("torch.sqrt", (mag,), torch.sqrt, np.sqrt),
+        ("sqrt in float64, rounded once", (mag,),
+         lambda x: torch.sqrt(x.double()).float(), np.sqrt),
+        ("vecmath.sqrt_rn", (mag,), sqrt_rn, np.sqrt),
+        ("1.0 / x", (signed,), lambda x: 1.0 / x, lambda x: 1.0 / x),
+        ("x / y (tensors)", (signed, nonzero), torch.div, np.divide),
+    ]
+    for label, c in (("3.0", 3.0), ("480.0", 480.0), ("2 pi", 2 * np.pi),
+                     ("pi", np.pi)):
+        cases += [
+            (f"x / {label} (Python number)", (signed,),
+             lambda x, c=c: x / c, lambda x, c=c: x / f32(c)),
+            (f"vecmath.div_scalar(x, {label})", (signed,),
+             lambda x, c=c: div_scalar(x, c),
+             lambda x, c=c: x * np.float64(np.float32(1) / np.float32(c)))]
+    cases += [
+        ("torch.exp", (rng.uniform(-80, 80, n).astype(np.float32),),
+         torch.exp, np.exp),
+        ("torch.sin", (angle,), torch.sin, np.sin),
+        ("torch.cos", (angle,), torch.cos, np.cos),
+        ("torch.asin", (unit,), torch.asin, np.arcsin),
+        ("torch.acos", (unit,), torch.acos, np.arccos),
+        ("torch.atan2", (unit, rng.uniform(-1, 1, n).astype(np.float32)),
+         torch.atan2, np.arctan2),
+        ("torch.pow(x, 0.85)", (rng.uniform(0, 10, n).astype(np.float32),),
+         lambda x: torch.pow(x, 0.85), lambda x: np.power(x, f32(0.85))),
+        ("u ** (1 / (1 + s)) (tensor exponent)",
+         (rng.uniform(1e-12, 1, n).astype(np.float32),
+          (1.0 / (1.0 + rng.uniform(1, 1000, n))).astype(np.float32)),
+         torch.pow, np.power),
+    ]
+    return cases
+
+
+def bits_differ(a, b):
+    """Elementwise: a and b (float32 tensors) differ in their bits, two
+    NaNs counting as equal."""
+    import torch
+    nan = torch.isnan(a) & torch.isnan(b)
+    return (a.view(torch.int32) != b.view(torch.int32)) & ~nan
+
+
+def phase_census(device):
+    """13(a): each op of census_cases on the card and on the CPU: how
+    many results differ between them and how many each gets wrong
+    against the correctly rounded reference."""
+    import torch
+    rng = np.random.default_rng(SEED)
+    out = {}
+    log(f"[13a census] {CENSUS_N} inputs an op: card != CPU; card wrong; "
+        "CPU wrong (against float64 rounded once)")
+    with np.errstate(all="ignore"):
+        for name, xs, fn, ref in census_cases(rng, CENSUS_N):
+            want = torch.from_numpy(np.asarray(
+                ref(*(x.astype(np.float64) for x in xs))).astype(np.float32))
+            cpu = fn(*(torch.from_numpy(x) for x in xs))
+            card = fn(*(torch.from_numpy(x).to(device) for x in xs)).cpu()
+            row = {k: int(bits_differ(a, b).sum()) for k, a, b in (
+                ("card_vs_cpu", card, cpu), ("card_wrong", card, want),
+                ("cpu_wrong", cpu, want))}
+            out[name] = row
+            log(f"  {name}: {row['card_vs_cpu']}; {row['card_wrong']}; "
+                f"{row['cpu_wrong']}")
+    for name in ("vecmath.sqrt_rn", "1.0 / x", "x / y (tensors)"):
+        if any(out[name].values()):
+            raise AssertionError(f"13a: {name} is not correctly rounded on "
+                                 f"both devices: {out[name]}")
+    for name in (k for k in out if k.startswith("vecmath.div_scalar")):
+        if any(out[name].values()):
+            raise AssertionError(f"13a: {name} differs: {out[name]}")
+    return out
+
+
+def root_rounded_to_nearest(x, r):
+    """Elementwise: r is the float32 square root of x >= 0 rounded to
+    nearest. For finite x > 0 that holds iff the float64 squares of the
+    midpoints between r and its float32 neighbours bracket x; they are
+    exact (25-bit midpoints), and no float32 x is such a square, so ties
+    cannot occur."""
+    import torch
+    inf = torch.full_like(r, float("inf"))
+    rd, xd = r.double(), x.double()
+    lo = (rd + torch.nextafter(r, -inf).double()) / 2
+    hi = (rd + torch.nextafter(r, inf).double()) / 2
+    finite = (lo * lo <= xd) & (xd <= hi * hi) & (r > 0) & torch.isfinite(r)
+    zero = (x == 0) & (r.view(torch.int32) == 0)
+    return torch.where(x == 0, zero,
+                       torch.where(torch.isinf(x), torch.isinf(r) & (r > 0),
+                                   torch.where(torch.isnan(x),
+                                               torch.isnan(r), finite)))
+
+
+def exhaustive_root(fn, device, chunk=ROOT_CHUNK):
+    """The number of the 2^31 non-negative float32 bit patterns (zero,
+    subnormals, normals, +inf, NaNs) on which fn's root on `device` is
+    not rounded to nearest, in chunks of `chunk` patterns."""
+    import torch
+    wrong = 0
+    for start in range(0, 1 << 31, chunk):
+        x = torch.arange(start, start + chunk, dtype=torch.int64,
+                         device=device).to(torch.int32).view(torch.float32)
+        wrong += int((~root_rounded_to_nearest(x, fn(x))).sum())
+    return wrong
+
+
+def phase_root(device):
+    """13(b): sqrt_rn's root on all 2^31 non-negative float32 inputs, on
+    the card (torch.sqrt) and on the CPU (numpy's)."""
+    import torch
+    from cse168_raytracer_tpu_torch.core.vecmath import sqrt_rn
+    out = {}
+    for name, fn, dev, chunk in (
+            ("vecmath.sqrt_rn on the card", sqrt_rn, device, ROOT_CHUNK),
+            ("vecmath.sqrt_rn on the CPU", sqrt_rn, torch.device("cpu"),
+             ROOT_CHUNK // 4)):
+        t0 = time.perf_counter()
+        out[name] = exhaustive_root(fn, dev, chunk)
+        log(f"[13b root] {name}: {out[name]} of 2^31 non-negative float32 "
+            f"inputs not rounded to nearest "
+            f"({time.perf_counter() - t0:.1f} s)")
+    if any(out.values()):
+        raise AssertionError("13b: sqrt_rn is not correctly rounded")
+    return out
+
+
+def phase_scatter_order(device):
+    """13(c): a level's accumulation with repeated pixels: the card's
+    index_add, index_put_(accumulate=True) and the integrator's
+    add_in_lane_order against the CPU's index_add (lane order), on terms
+    of mixed magnitudes over a lit frame and on subnormal terms (a
+    highlight's ipow(x, 500)) over a black one."""
+    import torch
+    from cse168_raytracer_tpu_torch.render.integrator import add_in_lane_order
+    g = torch.Generator().manual_seed(SEED)
+    n_pix = RES * RES
+    # a depth-2 pool: up to four lanes a pixel, a fifth of them dead
+    pixel = torch.randint(0, n_pix, (4 * n_pix,), generator=g)
+    alive = torch.rand(4 * n_pix, generator=g) < 0.8
+    mixed = torch.rand((4 * n_pix, 3), generator=g) * torch.exp(
+        4 * torch.randn((4 * n_pix, 3), generator=g))
+    subnormal = torch.randint(1, 1 << 21, (4 * n_pix, 3), generator=g,
+                              dtype=torch.int32).view(torch.float32)
+    out = {}
+    for case, terms, base in (
+            ("mixed terms", mixed, torch.rand((n_pix, 3), generator=g)),
+            ("subnormal terms", subnormal, torch.zeros((n_pix, 3)))):
+        contrib = torch.where(alive[:, None], terms, 0.0)
+        want = base.index_add(0, pixel, contrib)
+        b, p, c, a = (x.to(device) for x in (base, pixel, contrib, alive))
+        got = {"index_add": b.index_add(0, p, c),
+               "index_put_(accumulate=True)": b.index_put((p,), c,
+                                                          accumulate=True),
+               "add_in_lane_order": add_in_lane_order(b, p, c, a)}
+        for name, v in got.items():
+            v = v.cpu()
+            out[(case, name)] = n = int(bits_differ(v, want).sum())
+            log(f"[13c scatter] {case}: {name} on the card against the "
+                f"CPU's index_add (lane order), {4 * n_pix} terms on "
+                f"{n_pix} pixels: {n} of {want.numel()} values differ, "
+                f"{int(((v == 0) & (want != 0)).sum())} of them 0 on the "
+                "card")
+        if out[(case, "add_in_lane_order")] or not torch.equal(
+                add_in_lane_order(base, pixel, contrib, alive), want):
+            raise AssertionError(f"13c ({case}): add_in_lane_order is not "
+                                 "the lane-order sum")
+    return out
+
+
+BITEQ_RES = 512                 # 13(d)'s square renders
+BITEQ_SPONZA_RES = 512          # lit sponza_proxy's
+BITEQ_WIDE = (640, 480)         # test_sphere's, through the camera's divisions
+TRANSCENDENTALS = ("exp", "sin", "cos", "tan", "asin", "acos", "arccos",
+                   "atan2", "pow")
+
+
+def bit_equal_cases():
+    """(label, scene, width, height, depth) of 13(d)'s Whitted renders."""
+    r, s = BITEQ_RES, BITEQ_SPONZA_RES
+    return ([(f"{name} depth {depth}", name, r, r, depth)
+             for name in ("sphere", "mixed", "refract_spheres")
+             for depth in (DEPTH, 10)]
+            + [(f"lit sponza_proxy depth {DEPTH}", "sponza_proxy lit", s, s,
+                DEPTH),
+               (f"test_sphere depth {DEPTH}", "test_sphere", *BITEQ_WIDE,
+                DEPTH)])
+
+
+def bit_equal_scene(name, width, height, depth, device):
+    """The scene of a bit_equal_cases() row on `device`, its accelerator
+    attached, and its RenderConfig (Whitted, 1 spp)."""
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    from cse168_raytracer_tpu_torch.scenes import build
+    cfg = RenderConfig(width=width, height=height, trace_depth=depth)
+    if name == "mixed":
+        scene, static, cam = mixed_scene(device)
+    else:
+        scene, static, cam, _ = build(name.split()[0], cfg, device=device)
+        if name.endswith(" lit"):
+            scene = lit_sponza(scene)
+    return attach_accel(scene), static, cam, cfg
+
+
+@contextlib.contextmanager
+def transcendentals_on_host(keep=(), called=None):
+    """Within: each torch function named in TRANSCENDENTALS but not in
+    `keep`, and Tensor ** a non-integer, takes its CUDA arguments to the
+    CPU, computes there and moves the result back, so a render takes the
+    CPU's value for those ops and the card's for every other op. `called`
+    (a set) collects the names called with a CUDA tensor."""
+    import torch
+    saved = {name: getattr(torch, name) for name in TRANSCENDENTALS}
+    saved_pow = torch.Tensor.__pow__
+
+    def on_host(name, fn):
+        def run(*args, **kw):
+            dev = next((a.device for a in args
+                        if torch.is_tensor(a) and a.is_cuda), None)
+            if dev is None:
+                return fn(*args, **kw)
+            if called is not None:
+                called.add(name)
+            if name in keep:
+                return fn(*args, **kw)
+            return fn(*(a.cpu() if torch.is_tensor(a) else a for a in args),
+                      **kw).to(dev)
+        return run
+
+    pow_on_host = on_host("pow", saved_pow)
+    try:
+        for name, fn in saved.items():
+            setattr(torch, name, on_host(name, fn))
+        torch.Tensor.__pow__ = lambda x, e: (saved_pow(x, e)
+                                             if isinstance(e, int)
+                                             else pow_on_host(x, e))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(torch, name, fn)
+        torch.Tensor.__pow__ = saved_pow
+
+
+# 13(d)'s allowance: the transcendentals that may round a scene's pixels
+# differently on the card (measured by 13(d)'s attribution on an H100).
+# PERF.md section 5's table "scene (phase 13) | transcendentals" shows the
+# same rows; a scene absent here may differ through no op at all.
+ROUNDED_BY_SCENE = {"refract_spheres": {"pow", "exp"}}
+
+
+def pixels_differ(a, b):
+    """How many pixels of two (H, W, 3) float32 images differ in the bits
+    of any channel."""
+    return int(bits_differ(a.cpu(), b.cpu()).any(-1).sum())
+
+
+def phase_bit_equal(device):
+    """13(d): the Whitted forward of each bit_equal_cases() row on the
+    card and on the CPU, held equal by torch.equal. Where pixels differ,
+    the card renders again with every transcendental on the CPU (which
+    must give the CPU's image: no other op may round differently) and
+    with each one it called left on the card alone, which names the ops
+    the differing pixels trace to; ROUNDED_BY_SCENE must name each of
+    those for the scene."""
+    import torch
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    allowed = ROUNDED_BY_SCENE
+    out = {}
+    for label, name, w, h, depth in bit_equal_cases():
+        renders = []
+        for dev in (device, torch.device("cpu")):
+            scene, static, cam, cfg = bit_equal_scene(name, w, h, depth, dev)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                hdr = render_hdr(scene, static, cam, cfg)[0]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            renders.append((hdr.cpu(), time.perf_counter() - t0))
+        (card_hdr, card_s), (cpu_hdr, cpu_s) = renders
+        if not bool(torch.isfinite(cpu_hdr).all()) or not bool(
+                cpu_hdr.max() > cpu_hdr.min()):
+            raise AssertionError(f"13d {label}: NaN or constant image")
+        n = pixels_differ(card_hdr, cpu_hdr)
+        row = {"size": (w, h), "cpu_s": cpu_s, "card_s": card_s,
+               "differ": n, "ops": {}}
+        if n:
+            scene, static, cam, cfg = bit_equal_scene(name, w, h, depth,
+                                                      device)
+            called = set()
+            with torch.no_grad(), transcendentals_on_host(called=called):
+                rest = pixels_differ(render_hdr(scene, static, cam, cfg)[0],
+                                     cpu_hdr)
+            if rest:
+                raise AssertionError(
+                    f"13d {label}: {rest} pixels still differ with every "
+                    "transcendental on the CPU")
+            for op in sorted(called):
+                with torch.no_grad(), transcendentals_on_host(keep={op}):
+                    k = pixels_differ(render_hdr(scene, static, cam, cfg)[0],
+                                      cpu_hdr)
+                if k:
+                    row["ops"][op] = k
+            scene_name = name.split()[0]
+            missing = set(row["ops"]) - allowed.get(scene_name, set())
+            if missing or not row["ops"]:
+                raise AssertionError(
+                    f"13d {label}: {n} pixels differ, traced to "
+                    f"{row['ops'] or 'no single op'}; ROUNDED_BY_SCENE names "
+                    f"{sorted(allowed.get(scene_name, ()))} for "
+                    f"{scene_name}")
+        out[label] = row
+        ops = ", ".join(f"{k} {v}" for k, v in row["ops"].items())
+        log(f"[13d card = CPU] {label} {w}x{h}: "
+            + ("torch.equal holds" if not n else
+               f"{n} of {w * h} pixels differ, with the card's "
+               f"transcendentals alone ({ops} pixels with that op alone on "
+               "the card; 0 with all on the CPU)")
+            + f"; CPU {row['cpu_s']:.1f} s, card {row['card_s']:.2f} s")
+    return out
+
+
+def phase_rounding(device):
+    """Phase 13: (a) the census, (b) the root on every input, (c) the
+    accumulation's order, (d) card = CPU at full size."""
+    return {"census": phase_census(device), "root": phase_root(device),
+            "scatter": phase_scatter_order(device),
+            "renders": phase_bit_equal(device)}
+
+
 def main():
     device, card = phase_device()
     build_s, ptxas = phase_build()
@@ -2765,11 +3102,11 @@ def main():
     textured = phase_textured(device, card)
     photons = phase_photons(device, card)
     rest = phase_patches_and_parallel(device, card, photons["build"]["stats"])
+    phase_rounding(device)
     import torch
     src = "cse168_raytracer_tpu_torch/csrc/traverse_wide.cu"
     replaces = "cse168_raytracer_tpu/ops/pallas_bvh.py:1056"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "rays", "plain_rays")
-    wkeys = keys + ("per_ray_ms",)
 
     def regs(*names, prefix="traverse_warp "):
         """Registers and spilled bytes of the named kernels."""
@@ -2787,7 +3124,7 @@ def main():
                       + photons["launches"]["closest"]
                       + rest["launches"]["closest"]),
          "max_abs_err": errs["closest"], "library_ms": None,
-         **{k: timing["closest"][k] for k in wkeys},
+         **{k: timing["closest"][k] for k in keys},
          **regs("W=4 closest")},
         {"name": "traverse_wide any-hit (W=4)", "route": "cuda",
          "source": src, "replaces": replaces,
@@ -2796,7 +3133,7 @@ def main():
                       + photons["launches"]["any"]
                       + rest["launches"]["any"]),
          "max_abs_err": errs["any"], "library_ms": None,
-         **{k: timing["any"][k] for k in wkeys}, **regs("W=4 any")},
+         **{k: timing["any"][k] for k in keys}, **regs("W=4 any")},
         {"name": "traverse_wide with counters, closest+attr and any-hit "
                  "(K3)", "route": "cuda", "source": src,
          "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:1020",
@@ -2810,7 +3147,7 @@ def main():
          "route": "cuda", "source": src,
          "replaces": "cse168_raytracer_tpu/ops/pallas_bvh.py:1331",
          "launches": k4["launches"], "max_abs_err": k4["err"],
-         "library_ms": None, **{k: k4[k] for k in wkeys},
+         "library_ms": None, **{k: k4[k] for k in keys},
          **regs("W=8 closest", "W=8 any")},
         {"name": "traverse_binary closest (K5)", "route": "cuda",
          "source": src5,

@@ -28,6 +28,8 @@ import functools
 import numpy as np
 import torch
 
+from cse168_raytracer_tpu_torch.core.vecmath import sqrt_rn
+
 # Ken Perlin's reference permutation (lib/src/Perlin.cpp:3-38), doubled.
 _PERM = np.array([
     151, 160, 137, 91, 90, 15, 131, 13, 201, 95, 96, 53, 194, 233, 7, 225,
@@ -210,7 +212,7 @@ def _worley(at: torch.Tensor, max_order: int):
     flat_delta = delta.reshape(*lead, -1, n)
     flat_ids = ids.reshape(*lead, -1)
     top, top_idx = smallest_k(flat_d2, max_order)
-    f = torch.sqrt(top) * (1.0 / DENSITY_ADJUSTMENT)
+    f = sqrt_rn(top) * (1.0 / DENSITY_ADJUSTMENT)
     dsel = torch.take_along_dim(flat_delta, top_idx[..., None], dim=-2)
     dsel = dsel * (1.0 / DENSITY_ADJUSTMENT)
     isel = torch.take_along_dim(flat_ids, top_idx, dim=-1)

@@ -27,8 +27,9 @@ from __future__ import annotations
 import torch
 
 from cse168_raytracer_tpu_torch.config import PI
-from cse168_raytracer_tpu_torch.core.vecmath import (align_hemisphere, dot,
-                                                     onb, safe_normalize)
+from cse168_raytracer_tpu_torch.core.vecmath import (align_hemisphere,
+                                                     div_scalar, dot, onb,
+                                                     safe_normalize, sqrt_rn)
 
 
 _MASK64 = (1 << 64) - 1
@@ -65,10 +66,10 @@ def uniform(gen: torch.Generator, shape, device=None) -> torch.Tensor:
 def cosine_hemisphere(u: torch.Tensor, n: torch.Tensor):
     """Cosine-weighted direction about the unit normal n; u (..., 2).
     Returns (direction, pdf = cos(theta) / pi)."""
-    phi_polar = torch.asin(torch.sqrt(u[..., 0]))
+    phi_polar = torch.asin(sqrt_rn(u[..., 0]))
     theta = 2.0 * PI * u[..., 1]
     return (align_hemisphere(n, theta, phi_polar),
-            torch.cos(phi_polar) / PI)
+            div_scalar(torch.cos(phi_polar), PI))
 
 
 def phong_lobe(u: torch.Tensor, axis: torch.Tensor, shininess: torch.Tensor):
@@ -85,7 +86,7 @@ def phong_lobe(u: torch.Tensor, axis: torch.Tensor, shininess: torch.Tensor):
 def uniform_sphere(u: torch.Tensor) -> torch.Tensor:
     """Uniform direction on the unit sphere; u (..., 2) -> (..., 3)."""
     z = 1.0 - 2.0 * u[..., 0]
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    r = sqrt_rn(torch.clamp(1.0 - z * z, min=0.0))
     theta = 2.0 * PI * u[..., 1]
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta), z], -1)
 
@@ -98,7 +99,7 @@ def uniform_hemisphere(u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
 def uniform_disc(u: torch.Tensor, radius) -> torch.Tensor:
     """Uniform point on a disc of `radius`; u (..., 2) -> (..., 2)."""
-    r = radius * torch.sqrt(u[..., 0])
+    r = radius * sqrt_rn(u[..., 0])
     theta = 2.0 * PI * u[..., 1]
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], -1)
 
@@ -107,7 +108,7 @@ def stratified_grid_jitter(u: torch.Tensor, n_side: int) -> torch.Tensor:
     """n_side^2 stratified points of [0, 1)^2; u (n_side, n_side, 2)."""
     i = torch.arange(n_side, dtype=u.dtype, device=u.device)
     ij = torch.stack(torch.meshgrid(i, i, indexing="ij"), -1)
-    return ((ij + u) / n_side).reshape(n_side * n_side, 2)
+    return div_scalar(ij + u, n_side).reshape(n_side * n_side, 2)
 
 
 def cosine_hemisphere_about(u: torch.Tensor, n: torch.Tensor) -> torch.Tensor:

@@ -13,14 +13,24 @@ optics reproduce the reference's semantics exactly:
 
 Dot and cross products, norms and integer powers are written as single
 IEEE operations (products, sums, one division, one square root) in a
-fixed order, never a reduction, `rsqrt` or `pow`, whose rounding differs
-between PyTorch's CPU and CUDA kernels. So a render on the card follows
-the same float32 steps as on the CPU, and a hit that lies within an ulp
-of an edge or a shadow terminator goes the same way on both.
+fixed order, never a reduction, `rsqrt` or `pow`. What that buys
+depends on the op (chip_smoke.py phase 13 counts each on 2^20 inputs):
+- device-stable, so a render on the card rounds as on the CPU: `+`,
+  `-`, `*`, tensor / tensor and `1.0 / x` (correctly rounded by both
+  PyTorch kernels), the square root through sqrt_rn, and a division by
+  a Python number through div_scalar;
+- not device-stable: a bare torch.sqrt (PyTorch's float32 root on the
+  CPU is an ulp low on about 0.6% of inputs; the card's is correctly
+  rounded), a bare `x / c` for a Python number c (the card multiplies
+  by the reciprocal, the CPU divides), and the transcendentals (`exp`,
+  `sin`, `cos`, `asin`, `acos`, `atan2`, `pow` with a float exponent),
+  which neither device rounds correctly and which the port leaves as
+  they are (PERF.md lists where each sits).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -43,14 +53,46 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         a0 * b1 - a1 * b0], -1)
 
 
+class _RootRN(torch.autograd.Function):
+    """sqrt_rn off the card: numpy's root, the processor's IEEE square
+    root instruction, which is correctly rounded; the gradient is
+    torch.sqrt's own formula, grad / (2 * root)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        with np.errstate(invalid="ignore"):
+            root = torch.from_numpy(np.sqrt(x.detach().numpy()))
+        ctx.save_for_backward(root)
+        return root
+
+    @staticmethod
+    def backward(ctx, grad):
+        root, = ctx.saved_tensors
+        return grad / (2 * root)
+
+
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """The float32 square root rounded to nearest on every device: taken
-    in float64 and rounded once to float32, which is the correctly
-    rounded float32 root (53 >= 2 * 24 + 2 bits). PyTorch's float32
-    torch.sqrt on the card differs from the CPU's by an ulp on some
-    inputs (chip_smoke.py phase 12(a) counts them), and an
-    ill-conditioned quadratic magnifies that ulp."""
-    return torch.sqrt(x.double()).to(x.dtype)
+    """The square root rounded to nearest on every device, the port's
+    one route to a float32 root. On the card it is torch.sqrt, whose
+    float32 kernel is correctly rounded (chip_smoke.py phase 13 checks
+    all 2^31 non-negative inputs, subnormals included). PyTorch's CPU
+    root kernels are not: the float32 one is an ulp low on about 0.6%
+    of inputs, and the float64 one rounded to float32 was seen wrong on
+    a few inputs in some runs. So on the CPU the root is numpy's
+    (_RootRN). Both routes return the
+    same bits and the same gradient, torch.sqrt's grad / (2 * root)."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return _RootRN.apply(x)
+
+
+def div_scalar(x: torch.Tensor, c) -> torch.Tensor:
+    """x / c for a Python number c, as XLA (the JAX package's jitted
+    functions) and PyTorch's CUDA kernel compute it: x times the float32
+    reciprocal of float32(c). PyTorch's CPU kernel divides instead, which
+    differs by an ulp on a third to two thirds of inputs unless c is a
+    power of two."""
+    return x * float(np.float32(1.0) / np.float32(c))
 
 
 def ipow(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -71,7 +113,7 @@ def normalize(a: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
     n2 = dotk(a, a)
     if eps:
         n2 = torch.clamp(n2, min=eps)
-    return a * (1.0 / torch.sqrt(n2))
+    return a * (1.0 / sqrt_rn(n2))
 
 
 def safe_normalize(a: torch.Tensor) -> torch.Tensor:
@@ -162,8 +204,7 @@ def fresnel_rs(d: torch.Tensor, n: torch.Tensor,
     tir = pow_something > 1.0
     s2 = torch.clamp(1.0 - pow_something, min=0.0)
     # safe sqrt: zero gradient at the critical angle, same forward value
-    sqrt_term = torch.where(s2 > 0, torch.sqrt(torch.where(s2 > 0, s2, 1.0)),
-                            0.0)
+    sqrt_term = torch.where(s2 > 0, sqrt_rn(torch.where(s2 > 0, s2, 1.0)), 0.0)
     denom = n1 * cos_t + sqrt_term
     rs = ((n1 * cos_t - sqrt_term)
           / torch.where(denom.abs() < 1e-20, 1e-20, denom)) ** 2
@@ -180,7 +221,7 @@ def refract(d: torch.Tensor, n: torch.Tensor, ior: torch.Tensor):
     energy = 1.0 - (n1 ** 2) * (1.0 - d_dot_n ** 2) / (n2 ** 2)
     tir = energy < 0.0
     e = torch.clamp(energy, min=0.0)
-    root = torch.where(e > 0, torch.sqrt(torch.where(e > 0, e, 1.0)), 0.0)
+    root = torch.where(e > 0, sqrt_rn(torch.where(e > 0, e, 1.0)), 0.0)
     refr = (n1[..., None] * (d - n_or * d_dot_n[..., None]) / n2[..., None]
             - n_or * root[..., None])
     refl = reflect(d, n)

@@ -25,7 +25,7 @@
 // that scatter. A leaf visit is 128 triangle tests of ~53 operations
 // and 22 operand loads each, against ~4 slab tests per internal visit,
 // so leaves carry ~97% of the operations. One thread walking one ray
-// (the per-ray kernel, kept below as the yardstick) runs that leaf loop
+// (walk() below, the first design of this kernel) runs that leaf loop
 // once for every iteration on which some lane of the warp reaches a
 // leaf while the others wait, gathers each of its operands from up to
 // 32 leaves, and keeps its stack in device memory on the walk's
@@ -70,8 +70,8 @@
 // results equal the plain PyTorch twin in ops/wide_bvh.py bit for bit.
 //
 // walk() is plain C++ so that it also compiles for the host (g++ -x
-// c++), where the CPU tests run it against the twin; the per-ray kernel
-// is built from it, and the card walk repeats its steps in that order.
+// c++), where the CPU tests run it ray by ray against the twin; the card
+// walk repeats its steps in that order.
 
 #include <string.h>
 
@@ -332,36 +332,12 @@ __global__ void __launch_bounds__(THREADS)
   if (e) atomicOr(err, e);
 }
 
-// The per-ray kernel: one thread walks one ray with walk(), its stack
-// in the (stack_depth, n) device scratch `stack`. The design the card
-// walk replaced, kept only as its yardstick (chip_smoke.py times both).
-template <int W, bool ANY_HIT, bool STATS>
-__global__ void __launch_bounds__(THREADS)
-    traverse_per_ray(Tree tree, const float* __restrict__ o,
-                     const float* __restrict__ d,
-                     const float* __restrict__ tmin,
-                     const float* __restrict__ tmax, int n, int* stack,
-                     int stack_depth, Out out, int* err) {
-  const long i = (long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  int e = 0;
-  trace_one<W, ANY_HIT, STATS>(tree, o, d, tmin, tmax, i, n, stack,
-                               stack_depth, out, &e);
-  if (e) atomicOr(err, e);
-}
-
-// One launch of the card walk, or of the per-ray kernel when `stack` is
-// not null. Returns a CUDA error code.
+// One launch of the card walk. Returns a CUDA error code.
 template <int W, bool ANY_HIT, bool STATS>
 int launch_w(Tree tree, const float* o, const float* d, const float* tmin,
-             const float* tmax, int n, int* stack, int stack_depth,
-             const Out& out, int* err, cudaStream_t stream) {
+             const float* tmax, int n, int stack_depth, const Out& out,
+             int* err, cudaStream_t stream) {
   const int blocks = (n + THREADS - 1) / THREADS;
-  if (stack) {
-    traverse_per_ray<W, ANY_HIT, STATS><<<blocks, THREADS, 0, stream>>>(
-        tree, o, d, tmin, tmax, n, stack, stack_depth, out, err);
-    return (int)cudaGetLastError();
-  }
   const long smem = (long)stack_depth * THREADS * (long)sizeof(int);
   if (stack_depth < 1 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   auto kernel = traverse_warp<W, ANY_HIT, STATS>;
@@ -385,47 +361,45 @@ int launch_w(Tree tree, const float* o, const float* d, const float* tmin,
 
 template <bool ANY_HIT>
 int launch(int width, Tree tree, const float* o, const float* d,
-           const float* tmin, const float* tmax, int n, int* stack,
-           int stack_depth, const Out& out, int* err, cudaStream_t stream) {
+           const float* tmin, const float* tmax, int n, int stack_depth,
+           const Out& out, int* err, cudaStream_t stream) {
   if ((out.nv == nullptr) != (out.lv == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool stats = out.nv != nullptr;
   if (width == 4)
     return (stats ? launch_w<4, ANY_HIT, true> : launch_w<4, ANY_HIT, false>)(
-        tree, o, d, tmin, tmax, n, stack, stack_depth, out, err, stream);
+        tree, o, d, tmin, tmax, n, stack_depth, out, err, stream);
   if (width == 8)
     return (stats ? launch_w<8, ANY_HIT, true> : launch_w<8, ANY_HIT, false>)(
-        tree, o, d, tmin, tmax, n, stack, stack_depth, out, err, stream);
+        tree, o, d, tmin, tmax, n, stack_depth, out, err, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 int run_closest(int width, const void* o, const void* d, const void* tmin,
                 const void* tmax, int n, const void* cbox, const void* links,
                 const void* leafW, const void* attrA, int n_nodes,
-                int n_leaves, void* stack, int stack_depth, void* out_t,
-                void* out_id, void* out_attr, void* out_nv, void* out_lv,
-                void* err, void* stream) {
+                int n_leaves, int stack_depth, void* out_t, void* out_id,
+                void* out_attr, void* out_nv, void* out_lv, void* err,
+                void* stream) {
   const Tree tree{(const float*)cbox, (const int*)links, (const float*)leafW,
                   (const float*)attrA, n_nodes, n_leaves};
   const Out out{(float*)out_t, (int*)out_id, (float*)out_attr, (int*)out_nv,
                 (int*)out_lv};
   return launch<false>(width, tree, (const float*)o, (const float*)d,
                        (const float*)tmin, (const float*)tmax, n,
-                       (int*)stack, stack_depth, out, (int*)err,
-                       (cudaStream_t)stream);
+                       stack_depth, out, (int*)err, (cudaStream_t)stream);
 }
 
 int run_any(int width, const void* o, const void* d, const void* tmin,
             const void* tmax, int n, const void* cbox, const void* links,
-            const void* leafW, int n_nodes, int n_leaves, void* stack,
-            int stack_depth, void* out_t, void* out_nv, void* out_lv,
-            void* err, void* stream) {
+            const void* leafW, int n_nodes, int n_leaves, int stack_depth,
+            void* out_t, void* out_nv, void* out_lv, void* err, void* stream) {
   const Tree tree{(const float*)cbox, (const int*)links, (const float*)leafW,
                   nullptr, n_nodes, n_leaves};
   const Out out{(float*)out_t, nullptr, nullptr, (int*)out_nv, (int*)out_lv};
   return launch<true>(width, tree, (const float*)o, (const float*)d,
-                      (const float*)tmin, (const float*)tmax, n, (int*)stack,
-                      stack_depth, out, (int*)err, (cudaStream_t)stream);
+                      (const float*)tmin, (const float*)tmax, n, stack_depth,
+                      out, (int*)err, (cudaStream_t)stream);
 }
 
 #endif  // __CUDACC__
@@ -454,8 +428,8 @@ extern "C" int traverse_closest_attr(
     int stack_depth, void* out_t, void* out_id, void* out_attr,
     void* out_nv, void* out_lv, void* err, void* stream) {
   return run_closest(width, o, d, tmin, tmax, n, cbox, links, leafW, attrA,
-                     n_nodes, n_leaves, nullptr, stack_depth, out_t, out_id,
-                     out_attr, out_nv, out_lv, err, stream);
+                     n_nodes, n_leaves, stack_depth, out_t, out_id, out_attr,
+                     out_nv, out_lv, err, stream);
 }
 
 // Any hit: out_t < BIG marks an occluded ray. Same conventions.
@@ -466,36 +440,7 @@ extern "C" int traverse_any(int width, const void* o, const void* d,
                             int stack_depth, void* out_t, void* out_nv,
                             void* out_lv, void* err, void* stream) {
   return run_any(width, o, d, tmin, tmax, n, cbox, links, leafW, n_nodes,
-                 n_leaves, nullptr, stack_depth, out_t, out_nv, out_lv, err,
-                 stream);
-}
-
-// The same two by the per-ray kernel, which takes a (stack_depth, n) i32
-// device scratch `stack` (not null). Only chip_smoke.py reaches them.
-extern "C" int traverse_closest_attr_per_ray(
-    int width, const void* o, const void* d, const void* tmin,
-    const void* tmax, int n, const void* cbox, const void* links,
-    const void* leafW, const void* attrA, int n_nodes, int n_leaves,
-    void* stack, int stack_depth, void* out_t, void* out_id, void* out_attr,
-    void* out_nv, void* out_lv, void* err, void* stream) {
-  if (!stack) return (int)cudaErrorInvalidValue;
-  return run_closest(width, o, d, tmin, tmax, n, cbox, links, leafW, attrA,
-                     n_nodes, n_leaves, stack, stack_depth, out_t, out_id,
-                     out_attr, out_nv, out_lv, err, stream);
-}
-
-extern "C" int traverse_any_per_ray(int width, const void* o, const void* d,
-                                    const void* tmin, const void* tmax, int n,
-                                    const void* cbox, const void* links,
-                                    const void* leafW, int n_nodes,
-                                    int n_leaves, void* stack,
-                                    int stack_depth, void* out_t,
-                                    void* out_nv, void* out_lv, void* err,
-                                    void* stream) {
-  if (!stack) return (int)cudaErrorInvalidValue;
-  return run_any(width, o, d, tmin, tmax, n, cbox, links, leafW, n_nodes,
-                 n_leaves, stack, stack_depth, out_t, out_nv, out_lv, err,
-                 stream);
+                 n_leaves, stack_depth, out_t, out_nv, out_lv, err, stream);
 }
 
 #ifdef WALK_PROBE

@@ -28,7 +28,8 @@ from cse168_raytracer_tpu_torch.config import PI, resolve_device
 from cse168_raytracer_tpu_torch.core.sampling import (cosine_hemisphere_about,
                                                       uniform, uniform_disc,
                                                       uniform_sphere)
-from cse168_raytracer_tpu_torch.core.vecmath import dot, onb
+from cse168_raytracer_tpu_torch.core.vecmath import (div_scalar, dot, onb,
+                                                     sqrt_rn)
 
 LIGHT_POINT = 0
 LIGHT_SQUARE = 1
@@ -105,7 +106,7 @@ def sample_origin(lt: LightTable, li: int, u: torch.Tensor,
     t1, t2 = onb(lt.normal[li])
     if kind == LIGHT_SQUARE:
         side = float(np.sqrt(float(total_samples)))
-        du_dv = lt.dims[li] / side
+        du_dv = div_scalar(lt.dims[li], side)
         cell = u.new_tensor([sample_idx % int(side), sample_idx // int(side)])
         uv = (u + cell) * du_dv - 0.5 * lt.dims[li]
     elif kind == LIGHT_DIRECTIONAL_AREA:
@@ -182,7 +183,7 @@ def nee_sample(lt: LightTable, li: int, p: torch.Tensor, n: torch.Tensor,
     l_vec = origin - p
     fall2 = dot(l_vec, l_vec)
     fall2c = torch.clamp(fall2, min=1e-30)
-    dist = torch.sqrt(fall2c)
+    dist = sqrt_rn(fall2c)
     return NEESample(
         l=l_vec / dist[..., None],
         dist=dist,

@@ -44,7 +44,8 @@ from cse168_raytracer_tpu_torch.config import PI, resolve_device
 from cse168_raytracer_tpu_torch.core.fastgather import take_rows
 from cse168_raytracer_tpu_torch.core.noise import (perlin, smallest_k,
                                                    worley2)
-from cse168_raytracer_tpu_torch.core.vecmath import cross, dot
+from cse168_raytracer_tpu_torch.core.vecmath import (cross, div_scalar, dot,
+                                                     sqrt_rn)
 from cse168_raytracer_tpu_torch.models.materials import (MaterialTable,
                                                          TEX_CELLULAR,
                                                          TEX_CHECKER,
@@ -73,7 +74,7 @@ def generate_noise(x, y, z, initial_frequency, frequency_increase,
         max_val += amp
         freq = freq * frequency_increase
         amp *= amplitude_falloff
-    return value / max_val
+    return div_scalar(value, max_val)
 
 
 def generate_noise_dynamic(x, y, z, initial_frequency, frequency_increase,
@@ -125,13 +126,13 @@ def stone_lookup(u, v, scale):
                        - f1f0, 0.0, 0.5)
     id_mod10 = (id0 % 10).to(torch.float32)
     id_mod5 = (id0 % 5).to(torch.float32)
-    base = base * (id_mod10 / 20.0 + 0.5)
+    base = base * (div_scalar(id_mod10, 20.0) + 0.5)
     turb = generate_noise(u, v, torch.zeros_like(u), 3.0, 2.0, 0.8, 5)
     base = torch.clamp(base, min=0.0) + 0.8 * turb.abs()
     edges = torch.clamp(f1f0 * f1f0 - 1.0, max=0.75) + 0.25 * turb.abs()
-    red = base + id_mod10 / 10.0
-    green = base + (id_mod10 / 10.0) * 0.5
-    blue = base + (id_mod5 / 5.0) * 0.25
+    red = base + div_scalar(id_mod10, 10.0)
+    green = base + div_scalar(id_mod10, 10.0) * 0.5
+    blue = base + div_scalar(id_mod5, 5.0) * 0.25
     is_edge = f1f0 > 1.1
     return torch.stack([torch.where(is_edge, edges, red),
                         torch.where(is_edge, edges, green),
@@ -148,9 +149,9 @@ def stone_bump(u, v, scale):
     height = 1.0 / (1.0 + torch.exp(-20.0 * (f1 - f0 - 0.3)))
     iters = id0 % 3 + 5
     z = torch.zeros_like(u)
-    cellturb = (generate_noise_dynamic(u, v, z, 0.5, 2.0, 0.5, iters, 7)
-                / 5.0 + 0.5)
-    turb = generate_noise(u, v, z, 1.0, 2.0, 0.5, 3) / 10.0 + 0.5
+    cellturb = div_scalar(generate_noise_dynamic(u, v, z, 0.5, 2.0, 0.5,
+                                                 iters, 7), 5.0) + 0.5
+    turb = div_scalar(generate_noise(u, v, z, 1.0, 2.0, 0.5, 3), 10.0) + 0.5
     return torch.where(f1f0 > -1.1,
                        0.8 * cellturb + height_factor * height,
                        1.0 * turb + height_factor * height)
@@ -196,16 +197,16 @@ def petal_uv(p, pivot, radius):
     petal_color's 25-octave noise (frequency up to 4 * 3^24) turns an
     ulp of u into another value: hold petal_color on equal (u, v)."""
     position = p - pivot
-    r = torch.sqrt(torch.clamp(dot(position, position), min=1e-30))
+    r = sqrt_rn(torch.clamp(dot(position, position), min=1e-30))
     north = _rgb([0.0, 1.0, 0.0], p)
     equator = _rgb([1.0, 0.0, 0.0], p)
     # the reference normalizes `position` in place (Vector3::normalize
     # mutates, Texture.cpp:476) before the acos dot products below
     posn = position / r[..., None]
     phi = torch.arccos(torch.clamp(-dot(north, posn), -1.0, 1.0))
-    v = phi / PI
-    theta = torch.arccos(torch.clamp(dot(posn, equator), -1.0, 1.0)) / (
-        2.0 * PI)
+    v = div_scalar(phi, PI)
+    theta = div_scalar(torch.arccos(torch.clamp(dot(posn, equator), -1.0,
+                                                1.0)), 2.0 * PI)
     north_x_eq = cross(north, equator)
     u = torch.where(dot(north_x_eq, posn) > 0, theta, 1.0 - theta)
     return u, v, r / radius
@@ -222,10 +223,10 @@ def petal_color(u, v, dist):
     depression = mix([0.2, 0.0, 0.5], [0.3, 0.15, 0.75])
     z = torch.zeros_like(u)
     turb = generate_noise(u, v * 0.25, z, 4.0, 2.0, 0.9, 10).abs()
-    high_turb = torch.clamp(torch.pow(turb / 0.1, 0.85) * 1.5,
+    high_turb = torch.clamp(torch.pow(div_scalar(turb, 0.1), 0.85) * 1.5,
                             max=1.0)[..., None]
     turb2 = generate_noise(u, v, z, 4.0, 3.0, 0.9, 25).abs()
-    low_turb = torch.clamp(torch.pow(turb2 / 0.1, 0.85) * 1.5,
+    low_turb = torch.clamp(torch.pow(div_scalar(turb2, 0.1), 0.85) * 1.5,
                            max=1.0)[..., None]
     return (0.5 * (high_turb * diffuse + (1 - high_turb) * highlight)
             + 0.5 * (low_turb * diffuse + (1 - low_turb) * depression))
@@ -239,7 +240,7 @@ def petal_lookup(p, pivot, radius):
 def flower_center_lookup(p, pivot, radius):
     """FlowerCenterTexture::lookup3D (Texture.h:261-276)."""
     d = p - pivot
-    dist = torch.sqrt(torch.clamp(dot(d, d), min=1e-30))
+    dist = sqrt_rn(torch.clamp(dot(d, d), min=1e-30))
     fraction = torch.clamp(torch.pow(dist / radius, 30.0), 0.0, 1.0)
     max_red, max_green = 0.92, 0.71
     min_red, min_green = 0.31, 0.18
@@ -326,7 +327,7 @@ def cellular_distances(tex: CellularTexture, u, v, n: int = 4):
     dv = (v[..., None, None, None] - pts[..., 1]).abs()
     du = torch.minimum(du, 1.0 - du)  # toroidal wrap (Texture.cpp:295-297)
     dv = torch.minimum(dv, 1.0 - dv)
-    d = torch.sqrt(du * du + dv * dv)
+    d = sqrt_rn(du * du + dv * dv)
     d = torch.where(ok, d, 2.0)
     return smallest_k(d.reshape(d.shape[:-3] + (w * w * cap,)), n)[0]
 
@@ -555,8 +556,8 @@ def env_lookup(env: Environment, d: torch.Tensor,
     phi = torch.where(over, phi + PI, phi)
     theta = torch.where(over, theta - 2.0 * (theta - PI / 2.0), theta)
     phi = torch.where(phi > 2.0 * PI, phi - 2.0 * PI, phi)
-    u = phi / (2.0 * PI)
-    v = theta / PI + 0.5
+    u = div_scalar(phi, 2.0 * PI)
+    v = div_scalar(theta, PI) + 0.5
     if env.image is not None:
         hi = image_lookup(env.image, u, v, lowres=False)
         lo = image_lookup(env.image, u, v, lowres=True)

@@ -32,8 +32,8 @@ import torch
 from cse168_raytracer_tpu_torch.config import EPSILON, MIRO_TMAX
 from cse168_raytracer_tpu_torch.core.fastgather import (select_component,
                                                         take_rows)
-from cse168_raytracer_tpu_torch.core.vecmath import (cross, dot, ipow,
-                                                     safe_normalize)
+from cse168_raytracer_tpu_torch.core.vecmath import (cross, div_scalar, dot,
+                                                     ipow, safe_normalize)
 from cse168_raytracer_tpu_torch.models.lights import draw_nee_sample
 from cse168_raytracer_tpu_torch.models.materials import (SHININESS_INF,
                                                          is_refractive)
@@ -108,8 +108,8 @@ def apply_bump(scene: Scene, static: SceneStatic, surf: Surface):
     u2 = bump_height(scene.materials, mid, uv + du, kinds)
     v1 = bump_height(scene.materials, mid, uv - dv, kinds)
     v2 = bump_height(scene.materials, mid, uv + dv, kinds)
-    dx = (u2 - u1) / (2 * delta)
-    dy = (v2 - v1) / (2 * delta)
+    dx = div_scalar(u2 - u1, 2 * delta)
+    dy = div_scalar(v2 - v1, 2 * delta)
     # the reference's tangent (Scene.cpp:252-260): the largest-component
     # axis m, randomVec with -n[m] in a rotated slot, t1 = N x randomVec
     m = torch.where(n[:, 1] > n[:, 0], 1, 0)
@@ -190,7 +190,7 @@ def shade_direct(scene: Scene, static: SceneStatic, ray_d: torch.Tensor,
             visible = ~occluded & s.in_beam
 
             # wattage / samples (Phong.cpp:145,153)
-            w = scene.lights.wattage[li] / light_samples
+            w = div_scalar(scene.lights.wattage[li], light_samples)
             lcol = scene.lights.color[li]
             diff_term = torch.clamp(s.n_dot_l * s.falloff * w, min=0.0)
             contrib = (lcol * diff_term[..., None] * tex_color * kd

@@ -28,7 +28,8 @@ import torch
 from cse168_raytracer_tpu_torch.config import PI
 from cse168_raytracer_tpu_torch.core.fastgather import (select_component,
                                                         take_rows)
-from cse168_raytracer_tpu_torch.core.vecmath import cross, dot, safe_normalize
+from cse168_raytracer_tpu_torch.core.vecmath import (cross, div_scalar, dot,
+                                                     safe_normalize, sqrt_rn)
 from cse168_raytracer_tpu_torch.models.geometry import (BLPatchPool,
                                                         PlanePool, SpherePool,
                                                         TrianglePack)
@@ -150,7 +151,7 @@ def _sphere_surface(pool: SpherePool, o, d, t, sph_id):
     cc = dot(oc, oc) - r ** 2
     disc = b * b - 4.0 * a * cc
     root = torch.where(disc > 0,
-                       torch.sqrt(torch.where(disc > 0, disc, 1.0)), 0.0)
+                       sqrt_rn(torch.where(disc > 0, disc, 1.0)), 0.0)
     t0 = (-b - root) / (2.0 * a)
     t1 = (-b + root) / (2.0 * a)
     td = t.detach()
@@ -159,9 +160,10 @@ def _sphere_surface(pool: SpherePool, o, d, t, sph_id):
     p = o + t_use[:, None] * d
     n = p - c
     n_unit = safe_normalize(n)
-    u = torch.atan2(n_unit[:, 0], n_unit[:, 2]) / (2.0 * PI) + 0.5
-    v = torch.clamp(torch.asin(torch.clamp(n_unit[:, 1], -1.0, 1.0)),
-                    -PI / 2, PI / 2) / PI + 0.5
+    u = div_scalar(torch.atan2(n_unit[:, 0], n_unit[:, 2]), 2.0 * PI) + 0.5
+    v = div_scalar(torch.clamp(torch.asin(torch.clamp(n_unit[:, 1], -1.0,
+                                                      1.0)), -PI / 2, PI / 2),
+                   PI) + 0.5
     return (p, n_unit, n, torch.stack([u, v], -1),
             take_rows(pool.material_id, sph_id))
 

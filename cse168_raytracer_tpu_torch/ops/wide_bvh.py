@@ -18,9 +18,7 @@ pallas_bvh.py:569-574 scales them). On CPU tensors the same entry
 points run the kernel's plain version, `walk_plain`: the kernel's own
 walk vectorized over rays, with its counts dropped when they are not
 asked for. For a CUDA tensor a wrapper launches the kernel or raises;
-it never falls back to the plain version. `_launch_per_ray` runs the
-design the card walk replaced (one thread per ray, its stack in device
-memory), for chip_smoke.py to time beside it; nothing else reaches it.
+it never falls back to the plain version.
 `brute_force_triangles`, a chunked brute force over the leaf table with
 the same acceptance rule, first-lane ties and attribute gather, is an
 oracle independent of the walk, for tests and chip_smoke.py; no entry
@@ -501,10 +499,9 @@ def _bind(lib):
     any_hit = rays + [i, i]
     for name, args, outs in (("traverse_closest_attr", closest, [p] * 5),
                              ("traverse_any", any_hit, [p] * 3)):
-        for fn, stack in ((getattr(lib, name), []),
-                          (getattr(lib, name + "_per_ray"), [p])):
-            fn.argtypes = args + stack + [i] + outs + [p, p]
-            fn.restype = i
+        fn = getattr(lib, name)
+        fn.argtypes = args + [i] + outs + [p, p]
+        fn.restype = i
     lib.traverse_wide_threads.restype = i
     lib.traverse_wide_max_smem.restype = i
     return lib
@@ -554,14 +551,14 @@ def _check_inputs(bvh: WideBVH, o, d, tmin, tmax):
                          "need a 16-byte-aligned tensor")
 
 
-def _call(fn, stack, bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
+def _call(lib, bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
           with_stats: bool):
-    """Call `fn`, an entry point of traverse_wide.cu (traverse_any when
-    any_hit, else traverse_closest_attr; or either's _per_ray twin, which
-    takes the pointers `stack` before stack_depth). Returns the outputs
-    (t, id, attr, internal visits, leaf visits), the entries a mode does
-    not produce being None, and the (1,) error bits that the launch
-    sets, None where there were no rays and nothing was launched."""
+    """Call an entry point of `lib`, a build of traverse_wide.cu:
+    traverse_any when any_hit, else traverse_closest_attr. Returns the
+    outputs (t, id, attr, internal visits, leaf visits), the entries a
+    mode does not produce being None, and the (1,) error bits that the
+    launch sets, None where there were no rays and nothing was
+    launched."""
     o = o.detach().contiguous()
     d = d.detach().contiguous()
     _check_inputs(bvh, o, d, tmin, tmax)
@@ -581,15 +578,16 @@ def _call(fn, stack, bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
     common = [bvh.width, ptr(o), ptr(d), ptr(tmin), ptr(tmax), n,
               ptr(bvh.cbox), ptr(bvh.links), ptr(bvh.leafW)]
     if any_hit:
-        rc = fn(*common, bvh.n_nodes, bvh.n_leaves, *stack, bvh.stack_depth,
-                ptr(out_t), ptr(out_nv), ptr(out_lv), ptr(err),
-                ctypes.c_void_p(stream))
+        rc = lib.traverse_any(*common, bvh.n_nodes, bvh.n_leaves,
+                              bvh.stack_depth, ptr(out_t), ptr(out_nv),
+                              ptr(out_lv), ptr(err), ctypes.c_void_p(stream))
     else:
         out_id = torch.empty((n,), **i32)
         out_attr = torch.empty((n, 32), dtype=torch.float32, device=o.device)
-        rc = fn(*common, ptr(bvh.attrA), bvh.n_nodes, bvh.n_leaves, *stack,
-                bvh.stack_depth, ptr(out_t), ptr(out_id), ptr(out_attr),
-                ptr(out_nv), ptr(out_lv), ptr(err), ctypes.c_void_p(stream))
+        rc = lib.traverse_closest_attr(
+            *common, ptr(bvh.attrA), bvh.n_nodes, bvh.n_leaves,
+            bvh.stack_depth, ptr(out_t), ptr(out_id), ptr(out_attr),
+            ptr(out_nv), ptr(out_lv), ptr(err), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"traverse_wide launch failed: CUDA error {rc}")
     return (out_t, out_id, out_attr, out_nv, out_lv), err
@@ -609,33 +607,10 @@ def _launch(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
     leaf visits), the entries a mode does not produce being None."""
     lib = _kernel_lib()
     _stack_smem_bytes(lib, bvh.stack_depth)
-    fn = lib.traverse_any if any_hit else lib.traverse_closest_attr
-    out, err = _call(fn, [], bvh, o, d, tmin, tmax, any_hit, with_stats)
+    out, err = _call(lib, bvh, o, d, tmin, tmax, any_hit, with_stats)
     if err is not None:
         mode = "any" if any_hit else "closest"
         LAUNCHES["stats_" + mode if with_stats else mode] += 1
-        _raise_on(err)
-    return out
-
-
-def _launch_per_ray(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
-                    with_stats: bool = False):
-    """_launch by the per-ray kernel (one thread walks one ray, its stack
-    in (stack_depth, n) device scratch): the design the card walk
-    replaced, kept as its yardstick so that chip_smoke.py can time both
-    on one card. Nothing in the package calls it, and it counts no
-    launch."""
-    tmin, tmax = _bounds(o, tmin, tmax)
-    if bvh.stack_depth * o.shape[0] >= 2 ** 62:
-        raise ValueError("too many rays for one launch")
-    lib = _kernel_lib()
-    fn = (lib.traverse_any_per_ray if any_hit
-          else lib.traverse_closest_attr_per_ray)
-    scratch = torch.empty((bvh.stack_depth * o.shape[0],), dtype=torch.int32,
-                          device=o.device)
-    out, err = _call(fn, [ctypes.c_void_p(scratch.data_ptr())], bvh, o, d,
-                     tmin, tmax, any_hit, with_stats)
-    if err is not None:
         _raise_on(err)
     return out
 

@@ -17,7 +17,8 @@ import torch
 
 from cse168_raytracer_tpu_torch.config import PI, resolve_device
 from cse168_raytracer_tpu_torch.core.sampling import uniform, uniform_disc
-from cse168_raytracer_tpu_torch.core.vecmath import cross, safe_normalize
+from cse168_raytracer_tpu_torch.core.vecmath import (cross, div_scalar,
+                                                     safe_normalize)
 
 DEG_TO_RAD = PI / 180.0
 HALF_DEG_TO_RAD = DEG_TO_RAD / 2.0  # Camera.cpp:15
@@ -55,7 +56,9 @@ def camera_basis(cam: Camera, width: int, height: int):
     u_dir = safe_normalize(cross(cam.up, w_dir))
     v_dir = cross(w_dir, u_dir)
     aspect = width / height
-    # tan on the host: the CPU's and the card's tanf may differ by an ulp
+    # tan on the host: no device rounds tanf correctly and the card's may
+    # differ from the CPU's by an ulp; the rest of the camera is
+    # device-stable (core/vecmath.py: sqrt_rn, and div_scalar below)
     top = torch.tan(cam.fov.cpu() * HALF_DEG_TO_RAD).to(cam.fov.device)
     right = aspect * top
     return w_dir, u_dir, v_dir, top, right
@@ -78,8 +81,8 @@ def eye_rays(cam: Camera, x: torch.Tensor, y: torch.Tensor, width: int,
     yf = y.to(torch.float32)
     dx, dy = (0.5, 0.5) if jitter is None else (jitter[..., 0],
                                                 jitter[..., 1])
-    u = left + (right - left) * ((xf + dx) / width)
-    v = bottom + (top - bottom) * ((yf + dy) / height)
+    u = left + (right - left) * div_scalar(xf + dx, width)
+    v = bottom + (top - bottom) * div_scalar(yf + dy, height)
     if dof_aperture > 0.0:
         if lens is None:
             raise ValueError("a thin-lens ray needs lens uniforms")

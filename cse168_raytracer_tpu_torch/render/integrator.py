@@ -49,8 +49,9 @@ from cse168_raytracer_tpu_torch.config import (EPSILON, MIRO_TMAX,
                                                RenderConfig)
 from cse168_raytracer_tpu_torch.core.fastgather import take_rows
 from cse168_raytracer_tpu_torch.core.sampling import draw_phong_lobe
-from cse168_raytracer_tpu_torch.core.vecmath import (fresnel_rs, reflect,
-                                                     refract, safe_normalize)
+from cse168_raytracer_tpu_torch.core.vecmath import (div_scalar, fresnel_rs,
+                                                     reflect, refract,
+                                                     safe_normalize)
 from cse168_raytracer_tpu_torch.models.materials import is_diffuse
 from cse168_raytracer_tpu_torch.models.scene import Scene, SceneStatic
 from cse168_raytracer_tpu_torch.models.textures import env_lookup
@@ -131,6 +132,34 @@ def _compact(cands: Wavefront, capacity: int):
                      pixel=scat(cands.pixel), alive=slot_alive), dropped
 
 
+def add_in_lane_order(radiance: torch.Tensor, pixel: torch.Tensor,
+                      contrib: torch.Tensor,
+                      alive: torch.Tensor) -> torch.Tensor:
+    """radiance.index_add(0, pixel, contrib) over the alive lanes with
+    each pixel's terms added in lane order, ((r + c_i) + c_j) for lanes
+    i < j, on every device: the CPU's index_add adds in that order; the
+    card's adds by float atomics, in any order, and the atomics flush
+    subnormal results to zero (a Fresnel split gives a pixel two terms
+    in one level; a highlight's ipow(x, 500) is often subnormal). Here a
+    stable sort groups each pixel's lanes in lane order, and pass k adds
+    every pixel's k-th term by a gather and a plain store, one lane a
+    pixel, so no atomic is involved. Dead lanes add nothing."""
+    n = pixel.shape[0]
+    sentinel = radiance.shape[0]
+    key, perm = torch.sort(torch.where(alive, pixel, sentinel), stable=True)
+    head = torch.ones(n, dtype=torch.bool, device=pixel.device)
+    head[1:] = key[1:] != key[:-1]
+    start = torch.nonzero(head & (key != sentinel))[:, 0]
+    pix = key[start]
+    length = torch.bincount(key, minlength=sentinel + 1)[pix]
+    for k in range(int(length.max()) if start.numel() else 0):
+        has = length > k
+        lane = perm[torch.where(has, start + k, start)]
+        term = torch.where(has[:, None], contrib[lane], 0.0)
+        radiance = radiance.index_put((pix,), radiance[pix] + term)
+    return radiance
+
+
 def integrate(scene: Scene, static: SceneStatic, o, d, pixel,
               n_pixels: int, depth: int, capacity: Optional[int] = None,
               gen: Optional[torch.Generator] = None,
@@ -188,7 +217,8 @@ def integrate(scene: Scene, static: SceneStatic, o, d, pixel,
         if ray_order and level == 0:
             radiance = radiance + (wf.weight * add)[:n_pixels]
         else:
-            radiance = radiance.index_add(0, wf.pixel, wf.weight * add)
+            radiance = add_in_lane_order(radiance, wf.pixel,
+                                         wf.weight * add, wf.alive)
         shad = shad + n_sh * live_hit.sum()
         if not can_spawn:
             break
@@ -345,7 +375,7 @@ def render_hdr(scene: Scene, static: SceneStatic, cam: Camera,
     stats = (parts[0] if len(parts) == 1
              else _total_stats(parts, n_pix * spp, dev))
     if sampled:
-        acc = acc / spp
+        acc = div_scalar(acc, spp)
     if ray_order:
         acc = (acc.reshape(h // 8, w // 16, 8, 16, 3)
                .permute(0, 2, 1, 3, 4).reshape(h * w, 3))

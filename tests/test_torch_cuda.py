@@ -1,6 +1,5 @@
 """The port's CUDA kernels on the card: the wide-tree traversal (the card
-walk, and the per-ray kernel it replaced) with and without its in-kernel
-counters (K1-K4), the binary-tree traversal in its three modes (K5) and
+walk) with and without its in-kernel counters (K1-K4), the binary-tree traversal in its three modes (K5) and
 the block brute force (K6), each against its plain PyTorch version; and
 the textured path on the card against the CPU (Worley's tie order, and a
 textured, bump-mapped mesh rendered through K1); and the photon path on
@@ -87,12 +86,11 @@ def tie_mesh(n_base, seed):
 @pytest.mark.parametrize("width", [4, 8])
 @pytest.mark.parametrize("case", ["ragged", "ties"])
 def test_card_walk_equals_walk_plain(cuda, case, width, any_hit):
-    """The card walk and the per-ray kernel it replaced, each with and
-    without counters, against walk_plain exactly (t, id, attributes and
-    visit counts): on 4097 rays, the last warp holding one, with dead
-    rays inside every warp; and on a mesh whose every hit is a tie,
-    where the id must be walk_plain's (the first lane, the first leaf
-    visited)."""
+    """The card walk, with and without counters, against walk_plain
+    exactly (t, id, attributes and visit counts): on 4097 rays, the last
+    warp holding one, with dead rays inside every warp; and on a mesh
+    whose every hit is a tie, where the id must be walk_plain's (the
+    first lane, the first leaf visited)."""
     mesh, n = ((clustered_mesh(3000, 23), 4097) if case == "ragged"
                else (tie_mesh(1000, 24), 4096))
     pack = pack_triangles([(mesh, 0)], device=cuda)
@@ -103,16 +101,15 @@ def test_card_walk_equals_walk_plain(cuda, case, width, any_hit):
                                                  any_hit=any_hit)
     attrp = wide_bvh._gather_attr(bvh, tp, idp.long())
     assert 0 < int((tp < BIG).sum()) < n and int(n_leaf.sum()) > 0
-    for launch in (wide_bvh._launch, wide_bvh._launch_per_ray):
-        for stats in (False, True):
-            t, ids, attr, nv, lv = launch(bvh, o, d, tmin, tmax, any_hit,
-                                          stats)
-            torch.cuda.synchronize()
-            assert torch.equal(t, tp)
-            if not any_hit:
-                assert torch.equal(ids, idp) and torch.equal(attr, attrp)
-            if stats:
-                assert torch.equal(nv, n_int) and torch.equal(lv, n_leaf)
+    for stats in (False, True):
+        t, ids, attr, nv, lv = wide_bvh._launch(bvh, o, d, tmin, tmax,
+                                                any_hit, stats)
+        torch.cuda.synchronize()
+        assert torch.equal(t, tp)
+        if not any_hit:
+            assert torch.equal(ids, idp) and torch.equal(attr, attrp)
+        if stats:
+            assert torch.equal(nv, n_int) and torch.equal(lv, n_leaf)
 
 
 @pytest.mark.parametrize("width", [4, 8])
@@ -500,3 +497,66 @@ def test_sharded_render_card_equals_render_hdr(cuda):
                                  make_mesh(2, cuda))
     assert shd.device.type == "cuda" and float(ref.max()) > 0
     torch.testing.assert_close(shd, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_sqrt_rn_card_rounds_to_nearest(cuda):
+    """sqrt_rn on the card (torch.sqrt) on all 2^31 non-negative float32
+    inputs, in chunks of 2^24: each root rounded to nearest; and its
+    gradient, torch.sqrt's on the card, equal to the CPU route's."""
+    from chip_smoke import exhaustive_root
+    from cse168_raytracer_tpu_torch.core.vecmath import sqrt_rn
+    assert exhaustive_root(sqrt_rn, cuda, chunk=1 << 24) == 0
+    x = torch.rand(1 << 20, generator=torch.Generator().manual_seed(0)) + 0.5
+    g = torch.rand(1 << 20, generator=torch.Generator().manual_seed(1))
+    grads = []
+    for dev in ("cpu", cuda):
+        a = x.to(dev).detach().requires_grad_(True)
+        sqrt_rn(a).backward(g.to(dev))
+        grads.append(a.grad.cpu())
+    assert torch.equal(*grads)
+
+
+def test_device_stable_ops_card_equal_cpu(cuda):
+    """normalize on 2^20 vectors, div_scalar by 480 and by 2 pi, and
+    add_in_lane_order on repeated pixels: the card's bits are the
+    CPU's."""
+    from cse168_raytracer_tpu_torch.core.vecmath import div_scalar, normalize
+    from cse168_raytracer_tpu_torch.render.integrator import \
+        add_in_lane_order
+    g = torch.Generator().manual_seed(2)
+    v = torch.randn((1 << 20, 3), generator=g) * torch.exp(
+        4 * torch.randn((1 << 20, 1), generator=g))
+    assert torch.equal(normalize(v.to(cuda)).cpu(), normalize(v))
+    for c in (480.0, 2 * np.pi):
+        assert torch.equal(div_scalar(v.to(cuda), c).cpu(), div_scalar(v, c))
+    pixel = torch.randint(0, 1 << 16, (1 << 18,), generator=g)
+    alive = torch.rand(1 << 18, generator=g) < 0.8
+    terms = torch.where(alive[:, None], v[:1 << 18].abs(), 0.0)
+    base = torch.rand((1 << 16, 3), generator=g)
+    want = base.index_add(0, pixel, terms)
+    got = add_in_lane_order(*(x.to(cuda) for x in (base, pixel, terms,
+                                                    alive)))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["sphere", "mixed"])
+def test_whitted_64_card_equals_cpu(cuda, name):
+    """The Whitted forward at 64x64, depth 4, on the card and on the CPU:
+    equal by torch.equal (the mixed scene's Fresnel splits put two terms
+    on a pixel in one level)."""
+    from chip_smoke import mixed_scene
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    from cse168_raytracer_tpu_torch.scenes import build
+    cfg = RenderConfig(width=64, height=64, trace_depth=4)
+    hdrs = []
+    for dev in (torch.device("cpu"), cuda):
+        if name == "mixed":
+            scene, static, cam = mixed_scene(dev)
+        else:
+            scene, static, cam, _ = build(name, cfg, device=dev)
+        with torch.no_grad():
+            hdrs.append(render_hdr(attach_accel(scene), static, cam,
+                                   cfg)[0].cpu())
+    assert float(hdrs[0].max()) > 0 and torch.equal(*hdrs)

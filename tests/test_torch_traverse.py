@@ -558,8 +558,8 @@ def card_walk(tmp_path_factory):
 
 @pytest.fixture
 def emulated(card_walk, monkeypatch):
-    """wide_bvh._launch and _launch_per_ray on CPU tensors, through the
-    emulated card build; returns the launch counts."""
+    """wide_bvh._launch on CPU tensors, through the emulated card build;
+    returns the launch counts."""
     monkeypatch.setattr(twb, "_lib", card_walk)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
@@ -568,17 +568,17 @@ def emulated(card_walk, monkeypatch):
     return launches
 
 
-def check_card_walk(tbvh, r, any_hit, per_ray=False):
-    """The card walk (or the per-ray kernel), with and without counters,
-    equal to walk_plain: t, id, attributes and visit counts. Returns the
-    outputs without counters."""
+def check_card_walk(tbvh, r, any_hit):
+    """The card walk, with and without counters, equal to walk_plain: t,
+    id, attributes and visit counts. Returns the outputs without
+    counters."""
     o, d, tmin, tmax = (torch.as_tensor(x) for x in r)
     tp, idp, n_int, n_leaf = twb.walk_plain(tbvh, o, d, tmin, tmax,
                                             any_hit=any_hit)
     attrp = twb._gather_attr(tbvh, tp, idp.long())
-    launch = twb._launch_per_ray if per_ray else twb._launch
     for stats in (True, False):
-        t, ids, attr, nv, lv = launch(tbvh, o, d, tmin, tmax, any_hit, stats)
+        t, ids, attr, nv, lv = twb._launch(tbvh, o, d, tmin, tmax, any_hit,
+                                           stats)
         assert torch.equal(t, tp)
         if not any_hit:
             assert torch.equal(ids, idp) and torch.equal(attr, attrp)
@@ -620,8 +620,7 @@ def test_card_walk_ragged_dead_and_ties(emulated, case, width):
     the clustered mesh; and a mesh whose every hit is a tie, on two lanes
     of one leaf and across leaves, where the id must be the Pallas
     kernel's and walk_plain's (the first lane, the first leaf). The card
-    walk and the per-ray kernel, against walk_plain and the Pallas kernel
-    (interpreted)."""
+    walk against walk_plain and the Pallas kernel (interpreted)."""
     from test_torch_cuda import tie_mesh
     mesh = clustered_mesh(3000, 23) if case == "ragged" else tie_mesh(400, 24)
     _, _, jbvh, _, _, tbvh = build_both(case, width, mesh)
@@ -636,7 +635,6 @@ def test_card_walk_ragged_dead_and_ties(emulated, case, width):
     np.testing.assert_array_equal(ids, np.asarray(h.prim_id) * (t < BIG))
     assert 0 < int((t < BIG).sum()) < 300 and np.all(t[3::7] == BIG)
     check_card_walk(tbvh, r, any_hit=True)
-    check_card_walk(tbvh, r, any_hit=False, per_ray=True)
 
 
 def test_card_walk_reports_errors(emulated):
