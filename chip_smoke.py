@@ -86,7 +86,19 @@ Whitted forward of sphere, mixed_scene and refract_spheres at 512x512,
 depths 4 and 10, lit sponza_proxy and test_sphere at 640x480 on the
 card and on the CPU, equal by torch.equal, where a differing pixel
 must trace to a transcendental that ROUNDED_BY_SCENE names for the
-scene (PERF.md section 5 shows the same table).
+scene (PERF.md section 5 shows the same table); (e) the kd gradient of
+sum(hdr) of sphere and mixed_scene (depths 4 and 10), lit sponza_proxy
+(the main step) and refract_spheres at depth 4, card against CPU by
+torch.equal, differences traced as in (d) to the ops
+GRAD_ROUNDED_BY_SCENE names; (f) the photon path card against CPU:
+photon tracing on 11(c)'s uniforms with the transcendentals on the CPU,
+11(e)'s render and its photon-power gradient by torch.equal (or traced
+to the ops PHOTON_ROUNDED names), and that gradient at two forward
+chunks; (g) the segment-sum kernel (csrc/segment_sum.cu, the gradient
+scatters) against its plain version and against itself, by
+torch.equal, at the kd backward of the main step, a single run of all
+its terms, ReattachRows' backward, a photon backward level and a run of
+2^21 terms, timed beside index_add and embedding_dense_backward.
 Each phase prints its own lines; any failure raises and exits non-zero.
 The second-to-last line is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it
@@ -459,10 +471,11 @@ def phase_build():
     """Phase 2: every kernel source built at once, one nvcc each, and
     loaded; the native SAH builder."""
     from cse168_raytracer_tpu_torch.ops import (binary_bvh, cuda_build, sah,
-                                                tri_blocks, wide_bvh)
+                                                segment_sum, tri_blocks,
+                                                wide_bvh)
     t0 = time.perf_counter()
     cuda_build.build_all()
-    for mod in (wide_bvh, binary_bvh, tri_blocks):
+    for mod in (wide_bvh, binary_bvh, tri_blocks, segment_sum):
         mod._kernel_lib()
     build_s = time.perf_counter() - t0
     log(f"[2 build] {len(cuda_build.SOURCES)} kernel sources built and "
@@ -478,15 +491,16 @@ def phase_build():
             log(f"   ptxas: {name}: {k['registers']} registers, "
                 f"{k['smem']} bytes static shared memory, spill stores "
                 f"{k['spill_stores']} bytes, loads {k['spill_loads']} bytes")
-    # the card walks' twelve instantiations (K1-K4's eight, K5's four)
-    # and K6's three kernels, each reported and spilling nothing: spills
-    # would put their operands in local memory
+    # the card walks' twelve instantiations (K1-K4's eight, K5's four),
+    # K6's three kernels and the segmented sum's two, each reported and
+    # spilling nothing: spills would put their operands in local memory
     names = [f"traverse_warp W={w} {mode}{stats}" for w in (4, 8)
              for mode in ("closest", "any") for stats in ("", " stats")]
     names += [f"traverse_binary_warp {mode}{stats}"
               for mode in ("closest", "any") for stats in ("", " stats")]
     for name in names + ["tri_blocks_cull", "tri_blocks_test",
-                         "tri_blocks_finish"]:
+                         "tri_blocks_finish", "segsum_tiles",
+                         "segsum_rows"]:
         k = ptxas.get(name)
         if k is None:
             raise RuntimeError(f"phase 2: nvcc's report has no {name}")
@@ -503,7 +517,7 @@ def ptxas_kernels(text):
     """{kernel: {"registers", "smem", "spill_stores", "spill_loads"}}
     from nvcc's -Xptxas -v report; the kernels named as "traverse_warp
     W=4 closest", "traverse_warp W=8 any stats", "traverse_binary_warp
-    any stats" or "tri_blocks_test"."""
+    any stats", "tri_blocks_test" or "segsum_tiles"."""
     import re
     out, cur = {}, None
     for line in text.splitlines():
@@ -523,6 +537,8 @@ def ptxas_kernels(text):
                        + (" stats" if b.group(2) == "1" else ""))
             elif re.search(r"tri_blocks_(cull|test|finish)", cur):
                 cur = re.search(r"tri_blocks_(cull|test|finish)", cur).group(0)
+            elif re.search(r"segsum_(tiles|rows)", cur):
+                cur = re.search(r"segsum_(tiles|rows)", cur).group(0)
             out.setdefault(cur, {"registers": 0, "smem": 0,
                                  "spill_stores": 0, "spill_loads": 0})
             continue
@@ -677,7 +693,7 @@ def timed_steps(scene, static, cam, cfg, n_iter):
 def phase_main_path(device):
     import torch
     from cse168_raytracer_tpu_torch.config import RenderConfig
-    from cse168_raytracer_tpu_torch.ops import wide_bvh
+    from cse168_raytracer_tpu_torch.ops import segment_sum, wide_bvh
     from cse168_raytracer_tpu_torch.ops.accel import attach_accel
     from cse168_raytracer_tpu_torch.scenes import build
     cfg = RenderConfig(width=RES, height=RES, trace_depth=DEPTH)
@@ -692,9 +708,10 @@ def phase_main_path(device):
         f"{stack_line(scene.accel)}")
 
     n_iter = 5
-    out = {"scene": scene, "cam": cam, "build_s": build_s}
+    out = {"scene": scene, "static": static, "cam": cam, "build_s": build_s}
     for k in wide_bvh.LAUNCHES:
         wide_bvh.LAUNCHES[k] = 0
+    segment_sum.LAUNCHES["segment_sum"] = 0
     for label, s in (("registered", scene), ("lit", lit_sponza(scene))):
         torch.cuda.reset_peak_memory_stats(device)
         hdr, grad, stats, ms, host_ms = timed_steps(s, static, cam, cfg,
@@ -723,9 +740,9 @@ def phase_main_path(device):
             f"|grad| sum {float(grad.abs().sum()):.6g}")
         out[label] = {"ms": ms, "host_ms": host_ms, "rays": rays,
                       "peak_mib": peak / 2**20}
-    out["launches"] = dict(wide_bvh.LAUNCHES)
+    out["launches"] = dict(wide_bvh.LAUNCHES, **segment_sum.LAUNCHES)
     log(f"[4 main path] kernel launches over both runs: {out['launches']}")
-    for k in ("closest", "any"):
+    for k in ("closest", "any", "segment_sum"):
         if out["launches"][k] < 1:
             raise AssertionError(f"main path launched no {k} kernel")
     return out
@@ -1988,7 +2005,7 @@ def phase_photon_trace(device, card, scene, static, cpu_scene, cpu_static):
         if agree < TRACE_MASK_AGREE or min(close.values()) < TRACE_CLOSE:
             raise AssertionError(f"11c {name}: card and CPU photons disagree")
         out[name] = dict(agree=agree, close=close, card_s=card_s,
-                         cpu_s=cpu_s)
+                         cpu_s=cpu_s, uniforms=u, cpu_batch=b)
     return out
 
 
@@ -2185,7 +2202,8 @@ def phase_photon_cpu(card, scene, static, cam, maps, cpu_scene, cpu_static,
         f"card {card}")
     if within2 < 0.999 or mean > 0.05:
         raise AssertionError("11e: card and CPU photon renders disagree")
-    return dict(within2=within2, mean=mean)
+    return dict(within2=within2, mean=mean, card_hdr=card_hdr.cpu(),
+                cpu_hdr=cpu_hdr)
 
 
 def read_ppm(path):
@@ -2269,6 +2287,7 @@ def phase_photons(device, card):
     render = phase_photon_render(device, card, scene, static, cam, maps, p, n)
     match = phase_photon_cpu(card, scene, static, cam, maps, cpu_scene,
                              cpu_static, cpu_cam)
+    maps_cpu = maps.to(cpu)
     del scene, cpu_scene, maps
     cli_runs = phase_photon_cli(card, device)
     # the photon path's launches: the map build, the renders and the
@@ -2281,7 +2300,8 @@ def phase_photons(device, card):
         f"{ {n: r['launches'] for n, r in cli_runs.items()} }; total "
         f"{launches}; phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return dict(build=build, gather=gather, trace=trace, render=render,
-                match=match, cli=cli_runs, launches=launches)
+                match=match, cli=cli_runs, launches=launches,
+                maps_cpu=maps_cpu)
 
 
 # ---------------------------------------------------------------------------
@@ -2932,15 +2952,18 @@ TRANSCENDENTALS = ("exp", "sin", "cos", "tan", "asin", "acos", "arccos",
 
 
 def bit_equal_cases():
-    """(label, scene, width, height, depth) of 13(d)'s Whitted renders."""
+    """(label, scene, width, height, depth, grad) of 13(d)'s Whitted
+    renders; `grad`: 13(e) holds their kd gradients too (the forward of
+    the fwd+bwd step is 13(d)'s render)."""
     r, s = BITEQ_RES, BITEQ_SPONZA_RES
-    return ([(f"{name} depth {depth}", name, r, r, depth)
+    return ([(f"{name} depth {depth}", name, r, r, depth,
+              name != "refract_spheres" or depth == DEPTH)
              for name in ("sphere", "mixed", "refract_spheres")
              for depth in (DEPTH, 10)]
             + [(f"lit sponza_proxy depth {DEPTH}", "sponza_proxy lit", s, s,
-                DEPTH),
+                DEPTH, True),
                (f"test_sphere depth {DEPTH}", "test_sphere", *BITEQ_WIDE,
-                DEPTH)])
+                DEPTH, False)])
 
 
 def bit_equal_scene(name, width, height, depth, device):
@@ -3003,6 +3026,9 @@ def transcendentals_on_host(keep=(), called=None):
 # PERF.md section 5's table "scene (phase 13) | transcendentals" shows the
 # same rows; a scene absent here may differ through no op at all.
 ROUNDED_BY_SCENE = {"refract_spheres": {"pow", "exp"}}
+# 13(e)'s: the same for the kd gradient (autograd takes the backward of a
+# transcendental on the device of its forward); PERF.md section 5 shows it
+GRAD_ROUNDED_BY_SCENE = {"refract_spheres": {"exp"}}
 
 
 def pixels_differ(a, b):
@@ -3011,60 +3037,108 @@ def pixels_differ(a, b):
     return int(bits_differ(a.cpu(), b.cpu()).any(-1).sum())
 
 
-def phase_bit_equal(device):
-    """13(d): the Whitted forward of each bit_equal_cases() row on the
-    card and on the CPU, held equal by torch.equal. Where pixels differ,
-    the card renders again with every transcendental on the CPU (which
-    must give the CPU's image: no other op may round differently) and
-    with each one it called left on the card alone, which names the ops
-    the differing pixels trace to; ROUNDED_BY_SCENE must name each of
-    those for the scene."""
+def entries_differ(a, b):
+    """How many entries of two float32 tensors differ in their bits."""
+    return int(bits_differ(a.cpu(), b.cpu()).sum())
+
+
+def bit_equal_run(name, w, h, depth, grad, device, ctx=None):
+    """A bit_equal_cases() row on `device`: (hdr, kd gradient or None,
+    seconds), fwd+bwd of sum(hdr) w.r.t. kd when `grad`; the render (not
+    the scene's build) inside the context manager `ctx` if given."""
     import torch
     from cse168_raytracer_tpu_torch.render.integrator import render_hdr
-    allowed = ROUNDED_BY_SCENE
-    out = {}
-    for label, name, w, h, depth in bit_equal_cases():
-        renders = []
-        for dev in (device, torch.device("cpu")):
-            scene, static, cam, cfg = bit_equal_scene(name, w, h, depth, dev)
-            t0 = time.perf_counter()
+    scene, static, cam, cfg = bit_equal_scene(name, w, h, depth, device)
+    t0 = time.perf_counter()
+    with ctx or contextlib.nullcontext():
+        if grad:
+            hdr, kd_grad, _ = fwd_bwd(scene, static, cam, cfg)
+        else:
             with torch.no_grad():
-                hdr = render_hdr(scene, static, cam, cfg)[0]
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-            renders.append((hdr.cpu(), time.perf_counter() - t0))
-        (card_hdr, card_s), (cpu_hdr, cpu_s) = renders
+                hdr, kd_grad = render_hdr(scene, static, cam, cfg)[0], None
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return (hdr.cpu(), None if kd_grad is None else kd_grad.cpu(),
+            time.perf_counter() - t0)
+
+
+def attribute(label, want, run, allowed):
+    """Where a card output differs from the CPU's `want` (a tuple of
+    tensors): `run(**kw)` repeats the card's run inside
+    transcendentals_on_host(**kw) and returns its outputs. With every
+    transcendental on the CPU the outputs must be the CPU's; then each
+    op the run called is left on the card alone, and the entries that
+    differ with it are counted. Returns {op: [differing entries of each
+    output]}; raises if an op outside `allowed` accounts for any, or no
+    single op does."""
+    called = set()
+    rest = [entries_differ(a, b) for a, b in zip(run(called=called), want)
+            if a is not None]
+    if any(rest):
+        raise AssertionError(f"{label}: {rest} entries still differ with "
+                             "every transcendental on the CPU")
+    ops = {}
+    for op in sorted(called):
+        k = [entries_differ(a, b) for a, b in zip(run(keep={op}), want)
+             if a is not None]
+        if any(k):
+            ops[op] = k
+    missing = set(ops) - allowed
+    if missing or not ops:
+        raise AssertionError(f"{label}: differences traced to "
+                             f"{ops or 'no single op'}; the allowance names "
+                             f"{sorted(allowed)}")
+    return ops
+
+
+def phase_bit_equal(device):
+    """13(d), 13(e): each bit_equal_cases() row on the card and on the
+    CPU, its Whitted forward (13(d)) and, for the rows that ask, its kd
+    gradient (13(e), d sum(hdr) / d kd) held equal by torch.equal.
+    Where an output differs, the card runs again with every
+    transcendental on the CPU (which must give the CPU's outputs: no
+    other op may round differently) and with each one it called left on
+    the card alone, which names the ops the differences trace to;
+    ROUNDED_BY_SCENE (the image) and GRAD_ROUNDED_BY_SCENE (the
+    gradient) must name each of those for the scene."""
+    import torch
+    out = {}
+    for label, name, w, h, depth, grad in bit_equal_cases():
+        (card_hdr, card_g, card_s), (cpu_hdr, cpu_g, cpu_s) = (
+            bit_equal_run(name, w, h, depth, grad, dev)
+            for dev in (device, torch.device("cpu")))
         if not bool(torch.isfinite(cpu_hdr).all()) or not bool(
                 cpu_hdr.max() > cpu_hdr.min()):
             raise AssertionError(f"13d {label}: NaN or constant image")
         n = pixels_differ(card_hdr, cpu_hdr)
+        ng = None if not grad else entries_differ(card_g, cpu_g)
         row = {"size": (w, h), "cpu_s": cpu_s, "card_s": card_s,
-               "differ": n, "ops": {}}
-        if n:
-            scene, static, cam, cfg = bit_equal_scene(name, w, h, depth,
-                                                      device)
-            called = set()
-            with torch.no_grad(), transcendentals_on_host(called=called):
-                rest = pixels_differ(render_hdr(scene, static, cam, cfg)[0],
-                                     cpu_hdr)
-            if rest:
-                raise AssertionError(
-                    f"13d {label}: {rest} pixels still differ with every "
-                    "transcendental on the CPU")
-            for op in sorted(called):
-                with torch.no_grad(), transcendentals_on_host(keep={op}):
-                    k = pixels_differ(render_hdr(scene, static, cam, cfg)[0],
-                                      cpu_hdr)
-                if k:
-                    row["ops"][op] = k
+               "differ": n, "grad_differ": ng, "ops": {}, "grad_ops": {}}
+        if grad and not (bool(torch.isfinite(cpu_g).all())
+                         and bool(cpu_g.abs().sum() > 0)):
+            raise AssertionError(f"13e {label}: NaN or zero kd gradient")
+        if n or ng:
             scene_name = name.split()[0]
-            missing = set(row["ops"]) - allowed.get(scene_name, set())
-            if missing or not row["ops"]:
-                raise AssertionError(
-                    f"13d {label}: {n} pixels differ, traced to "
-                    f"{row['ops'] or 'no single op'}; ROUNDED_BY_SCENE names "
-                    f"{sorted(allowed.get(scene_name, ()))} for "
-                    f"{scene_name}")
+
+            def run(**kw):
+                return bit_equal_run(name, w, h, depth, grad, device,
+                                     transcendentals_on_host(**kw))[:2]
+            ops = attribute(f"13d/e {label}", (cpu_hdr, cpu_g), run,
+                            ROUNDED_BY_SCENE.get(scene_name, set())
+                            | GRAD_ROUNDED_BY_SCENE.get(scene_name, set()))
+            row["ops"] = {op: k[0] for op, k in ops.items() if k[0]}
+            row["grad_ops"] = {op: k[1] for op, k in ops.items()
+                               if len(k) > 1 and k[1]}
+            for what, counts, allowed in (
+                    ("pixels", row["ops"], ROUNDED_BY_SCENE),
+                    ("gradient entries", row["grad_ops"],
+                     GRAD_ROUNDED_BY_SCENE)):
+                extra = set(counts) - allowed.get(scene_name, set())
+                if extra:
+                    raise AssertionError(
+                        f"13d/e {label}: {what} differ through {extra}, "
+                        f"which the allowance for {scene_name} does not "
+                        "name")
         out[label] = row
         ops = ", ".join(f"{k} {v}" for k, v in row["ops"].items())
         log(f"[13d card = CPU] {label} {w}x{h}: "
@@ -3072,16 +3146,319 @@ def phase_bit_equal(device):
                f"{n} of {w * h} pixels differ, with the card's "
                f"transcendentals alone ({ops} pixels with that op alone on "
                "the card; 0 with all on the CPU)")
-            + f"; CPU {row['cpu_s']:.1f} s, card {row['card_s']:.2f} s")
+            + f"; CPU {row['cpu_s']:.1f} s, card {row['card_s']:.2f} s"
+            + (" (fwd+bwd)" if grad else ""))
+        if grad:
+            gops = ", ".join(f"{k} {v}" for k, v in row["grad_ops"].items())
+            rel = float((card_g - cpu_g).abs().max()
+                        / cpu_g.abs().max().clamp(min=1e-30))
+            log(f"[13e kd gradient card = CPU] {label} {w}x{h}: "
+                + ("torch.equal holds" if not ng else
+                   f"{ng} of {cpu_g.numel()} entries differ (max |diff| / "
+                   f"max {rel:.3g}), with the card's transcendentals alone "
+                   f"({gops} entries with that op alone on the card; 0 with "
+                   "all on the CPU)"))
     return out
 
 
-def phase_rounding(device):
+def count_differ(a, b):
+    """Entries of two tensors that differ: float32 ones in their bits
+    (two NaNs equal), others by value."""
+    import torch
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == b.dtype == torch.float32:
+        return int(bits_differ(a, b).sum())
+    return int((a != b).sum())
+
+
+def photon_power_grads(scene, static, cam, cfg, maps):
+    """(hdr, the gradients of sum(hdr) w.r.t. the stored powers of both
+    maps, fine and coarse levels): the photon-power gradient of
+    gain_step before its reduction to the three gains."""
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    leaves, grids = [], {}
+    for name in ("global_map", "caustic_map"):
+        g = getattr(maps, name)
+        fine = g.power.detach().clone().requires_grad_(True)
+        coarse = g.coarse.power.detach().clone().requires_grad_(True)
+        leaves += [fine, coarse]
+        grids[name] = g.replace(power=fine,
+                                coarse=g.coarse.replace(power=coarse))
+    hdr, _ = render_hdr(scene.replace(photons=maps.replace(**grids)), static,
+                        cam, cfg)
+    hdr.sum().backward()
+    return (hdr.detach(),) + tuple(t.grad for t in leaves)
+
+
+# 13(f)'s allowance: transcendentals that may round photon_box's photon
+# render or its photon-power gradient differently on the card
+PHOTON_ROUNDED = set()
+PHOTON_GRAD_CHUNK = 1 << 21   # 13(f)'s second forward chunk budget
+
+
+def phase_photon_bits(device, card, photons):
+    """13(f): the photon path, card = CPU. (i) trace_photon_batch on
+    phase 11(c)'s uniforms with the transcendentals on the CPU: the
+    stored photons (positions, directions, powers, masks, bounce counts)
+    equal the CPU's by torch.equal; (ii) phase 11(e)'s render at
+    PHOTON_CPU_RES, depth 10, with the same maps: torch.equal, or every
+    differing pixel traced to a transcendental PHOTON_ROUNDED names;
+    (iii) the photon-power gradient of that render (both maps, both
+    levels): the same; (iv) that gradient on the card at PHOTON_RES at
+    two forward chunks: torch.equal. Returns the largest photon
+    backward segment_sum call of (iv), for 13(g)."""
+    import torch
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.ops import photon as ph
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    scene, static, cam = photon_scene(device)
+    maps_cpu = photons["maps_cpu"]
+    maps = maps_cpu.to(device)
+    out = {}
+    for name, tr in photons["trace"].items():
+        u = tr["uniforms"]
+        u_card = ph.PhotonUniforms(**{
+            f.name: None if getattr(u, f.name) is None
+            else getattr(u, f.name).to(device) for f in dataclasses.fields(u)})
+        fields = ("pos", "dir", "power", "mask", "bounces")
+
+        def trace(**kw):
+            with transcendentals_on_host(**kw):
+                b = ph.trace_photon_batch(scene, static, 0, name == "caustic",
+                                          False, u_card)
+            return [getattr(b, f).cpu() for f in fields]
+        want = [getattr(tr["cpu_batch"], f) for f in fields]
+        own = {f: count_differ(a, b) for f, a, b in zip(fields, trace(keep=(
+            *TRANSCENDENTALS,)), want)}
+        host = {f: count_differ(a, b) for f, a, b in zip(fields, trace(),
+                                                         want)}
+        out[f"trace {name}"] = dict(card=own, host=host)
+        log(f"[13f photons card = CPU] trace_photon_batch, {name}, "
+            f"{PHOTON_TRACE_N} photons x 6 levels on 11(c)'s uniforms: with "
+            f"the transcendentals on the CPU {host} entries differ; with "
+            f"the card's own {own}")
+        if any(host.values()):
+            raise AssertionError(f"13f: {name} photons differ with the "
+                                 "transcendentals on the CPU")
+    small = RenderConfig(width=PHOTON_CPU_RES, height=PHOTON_CPU_RES,
+                         trace_depth=10)
+    card_hdr, cpu_hdr = (photons["match"][k] for k in ("card_hdr",
+                                                       "cpu_hdr"))
+    n = pixels_differ(card_hdr, cpu_hdr)
+    row = {"differ": n, "ops": {}}
+    if n:
+        def render(**kw):
+            with torch.no_grad(), transcendentals_on_host(**kw):
+                return (render_hdr(scene.replace(photons=maps), static, cam,
+                                   small)[0].cpu(),)
+        row["ops"] = {op: k[0] for op, k in attribute(
+            "13f render", (cpu_hdr,), render, PHOTON_ROUNDED).items()}
+    out["render"] = row
+    log(f"[13f photons card = CPU] 11(e)'s render {PHOTON_CPU_RES}x"
+        f"{PHOTON_CPU_RES}, depth 10, the same maps: "
+        + ("torch.equal holds" if not n else
+           f"{n} pixels differ, traced to {row['ops']}"))
+    cpu_scene, cpu_static, cpu_cam = photon_scene(cpu)
+    t0 = time.perf_counter()
+    want = photon_power_grads(cpu_scene, cpu_static, cpu_cam, small,
+                              maps_cpu)
+    cpu_s = time.perf_counter() - t0
+    got = [x.cpu() for x in photon_power_grads(scene, static, cam, small,
+                                               maps)]
+    labels = ("image", "global fine", "global coarse", "caustic fine",
+              "caustic coarse")
+    diff = {k: count_differ(a, b) for k, a, b in zip(labels, got, want)}
+    if not sum(float(g.abs().sum()) for g in want[1:]) > 0:
+        raise AssertionError("13f: a zero photon-power gradient")
+    row = {"differ": diff, "ops": {}, "cpu_s": cpu_s}
+    if any(diff.values()):
+        def grads(**kw):
+            with transcendentals_on_host(**kw):
+                return tuple(x.cpu() for x in photon_power_grads(
+                    scene, static, cam, small, maps))
+        row["ops"] = attribute("13f photon-power gradient", tuple(want),
+                               grads, PHOTON_ROUNDED)
+    out["grad"] = row
+    log(f"[13f photons card = CPU] the photon-power gradient of that "
+        f"render: entries differing {diff}"
+        + (f", traced to {row['ops']}" if row["ops"] else
+           ": torch.equal holds") + f"; CPU {cpu_s:.1f} s")
+    # (iv) at PHOTON_RES on the card, two forward chunks; keep the
+    # largest photon backward segment_sum call for 13(g)
+    big = RenderConfig(width=PHOTON_RES, height=PHOTON_RES, trace_depth=10)
+    first = []
+    level = record_segment_sum(ph, lambda: first.extend(
+        photon_power_grads(scene, static, cam, big, maps)))
+    saved = dict(ph._CHUNK_CANDIDATES)
+    ph._CHUNK_CANDIDATES["cuda"] = PHOTON_GRAD_CHUNK
+    try:
+        second = photon_power_grads(scene, static, cam, big, maps)
+    finally:
+        ph._CHUNK_CANDIDATES.update(saved)
+    chunks = (saved["cuda"] // (27 * maps.global_map.max_per_cell),
+              PHOTON_GRAD_CHUNK // (27 * maps.global_map.max_per_cell))
+    diff = {k: count_differ(a, b) for k, a, b in zip(labels, first, second)}
+    out["chunks"] = diff
+    log(f"[13f photons] the photon-power gradient at {PHOTON_RES}x"
+        f"{PHOTON_RES}, depth 10, at forward chunks of {chunks[0]} and "
+        f"{chunks[1]} points (backward chunk "
+        f"{ph.backward_chunk(maps.global_map)}): entries differing {diff}; "
+        f"phase 13(f) took {time.perf_counter() - t_phase:.1f} s; card "
+        f"{card}")
+    if any(diff.values()):
+        raise AssertionError("13f: the photon-power gradient depends on the "
+                             "forward chunk")
+    return out, level
+
+
+def record_segment_sum(module, fn):
+    """fn() with module.segment_sum recording its calls: returns
+    (values, ids, n_rows) of the first call with the most terms."""
+    real, seen = module.segment_sum, []
+
+    def keep(values, ids, n_rows):
+        if not seen or values.shape[0] > seen[0][0].shape[0]:
+            seen[:] = [(values.clone(), ids.clone(), n_rows)]
+        return real(values, ids, n_rows)
+    module.segment_sum = keep
+    try:
+        fn()
+    finally:
+        module.segment_sum = real
+    return seen[0]
+
+
+SEGSUM_REPS = 20
+SEGSUM_BIG_RUN = 1 << 21
+
+
+def segment_sum_split(values, ids, n_rows, reps=SEGSUM_REPS):
+    """ms of segment_sum's parts by CUDA events: the sort (with the row
+    bounds' search), both launches, and the rows pass alone (a launch
+    with no tiles; its output is not read)."""
+    import ctypes
+    import torch
+    from cse168_raytracer_tpu_torch.ops import segment_sum as ss
+    n, cols = values.shape
+    perm, row_start = ss._runs(ids, n_rows)
+    bound = n_rows + n // ss.TILE
+    partial = torch.empty((bound, cols), device=values.device)
+    out = torch.empty((n_rows, cols), device=values.device)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    lib = ss._kernel_lib()
+
+    def launch(slots):
+        rc = lib.segment_sum_launch(
+            ptr(values), cols, ptr(perm), ptr(row_start), n_rows, slots,
+            ptr(partial), ptr(out), ctypes.c_void_p(
+                torch.cuda.current_stream().cuda_stream))
+        if rc:
+            raise RuntimeError(f"segment_sum launch failed: {rc}")
+    both = time_cuda(lambda: launch(bound), reps)
+    rows = time_cuda(lambda: launch(0), reps)
+    return {"sort_ms": time_cuda(lambda: ss._runs(ids, n_rows), reps),
+            "launches_ms": both, "tiles_ms": both - rows, "rows_ms": rows}
+
+
+def phase_segment_sum(device, card, main_run, photon_level):
+    """13(g): the segment-sum kernel against segment_sum_plain on the
+    card, torch.equal, and against itself over two runs, at the shapes
+    the paths give it: the main step's kd backward (recorded from a lit
+    step), the same terms in a single run of all, ReattachRows' backward
+    of a lit step w.r.t. the triangles' v0 (recorded), 13(f)'s largest
+    photon backward call, and a run of SEGSUM_BIG_RUN terms (the rows
+    pass's second level). Timed at each shape: the kernel (sort and
+    launches), its parts, the plain version, and the PyTorch calls that
+    compute the same sum, index_add and embedding_dense_backward."""
+    import torch
+    from cse168_raytracer_tpu_torch.core import fastgather
+    from cse168_raytracer_tpu_torch.ops import segment_sum as ss
+    from cse168_raytracer_tpu_torch.ops import surface
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    t_phase = time.perf_counter()
+    lit = lit_sponza(main_run["scene"])
+    static, cam = main_run["static"], main_run["cam"]
+    cfg = RenderConfig(width=RES, height=RES, trace_depth=DEPTH)
+    kd = record_segment_sum(fastgather,
+                            lambda: fwd_bwd(lit, static, cam, cfg))
+
+    def v0_step():
+        v0 = lit.tris.v0.detach().clone().requires_grad_(True)
+        s = lit.replace(tris=lit.tris.replace(v0=v0))
+        render_hdr(s, static, cam, cfg)[0].sum().backward()
+    tri = record_segment_sum(surface, v0_step)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    big = torch.randn((SEGSUM_BIG_RUN, 1), generator=g, device=device)
+    shapes = {
+        "kd backward (main step)": kd,
+        "kd backward, one run of all": (kd[0], torch.zeros_like(kd[1]),
+                                        kd[2]),
+        "ReattachRows backward (v0)": tri,
+        "photon backward (13(f))": photon_level,
+        f"one run of {SEGSUM_BIG_RUN}": (big, torch.zeros(
+            SEGSUM_BIG_RUN, dtype=torch.int64, device=device), 1)}
+    out = {}
+    for label, (v, ids, n_rows) in shapes.items():
+        v, ids = v.contiguous(), ids.long().contiguous()
+        want = ss.segment_sum_plain(v, ids, n_rows)
+        a = ss.segment_sum(v, ids, n_rows)
+        b = ss.segment_sum(v, ids, n_rows)
+        torch.cuda.synchronize()
+        same, again = torch.equal(a, want), torch.equal(a, b)
+        err = float((a - want).abs().max())
+        n, cols = v.shape
+        runs = torch.bincount(ids, minlength=n_rows)
+        nbytes = n * cols * 4 + n * 8 + n_rows * cols * 4
+        zeros = torch.zeros((n_rows, cols), device=device)
+        row = dict(
+            terms=n, cols=cols, rows=n_rows, longest=int(runs.max()),
+            empty=int((runs == 0).sum()), equal=same, repeat=again,
+            max_abs_err=err,
+            ms=time_cuda(lambda: ss.segment_sum(v, ids, n_rows),
+                         SEGSUM_REPS),
+            plain_ms=time_cuda(lambda: ss.segment_sum_plain(v, ids, n_rows),
+                               3),
+            library_ms=time_cuda(lambda: zeros.index_add(0, ids, v),
+                                 SEGSUM_REPS),
+            embedding_ms=time_cuda(
+                lambda: torch.ops.aten.embedding_dense_backward(
+                    v, ids, n_rows, -1, False), SEGSUM_REPS),
+            bound_ms=nbytes / HBM_BYTES_S * 1e3, bound_by="bytes",
+            **segment_sum_split(v, ids, n_rows))
+        out[label] = row
+        log(f"[13g segment_sum] {label}: {n} x {cols} terms on {n_rows} "
+            f"rows (longest run {row['longest']}, {row['empty']} empty): "
+            f"kernel = plain by torch.equal {same}, run twice equal "
+            f"{again}, max |err| {err:.3g}; kernel {row['ms']:.4f} ms (sort "
+            f"{row['sort_ms']:.4f}, tiles pass {row['tiles_ms']:.4f}, rows "
+            f"pass {row['rows_ms']:.4f}), plain {row['plain_ms']:.3f} ms, "
+            f"index_add {row['library_ms']:.4f} ms, "
+            f"embedding_dense_backward {row['embedding_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms (bytes); card {card}")
+        if not (same and again):
+            raise AssertionError(f"13g {label}: the kernel differs from its "
+                                 "plain version or from itself")
+    log(f"[13g segment_sum] phase 13(g) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase_rounding(device, card, main_run, photons):
     """Phase 13: (a) the census, (b) the root on every input, (c) the
-    accumulation's order, (d) card = CPU at full size."""
-    return {"census": phase_census(device), "root": phase_root(device),
-            "scatter": phase_scatter_order(device),
-            "renders": phase_bit_equal(device)}
+    accumulation's order, (d) card = CPU at full size, (e) kd gradients
+    card = CPU, (f) the photon path card = CPU, (g) the segment-sum
+    kernel against its plain version at the paths' shapes."""
+    out = {"census": phase_census(device), "root": phase_root(device),
+           "scatter": phase_scatter_order(device)}
+    t0 = time.perf_counter()
+    out["renders"] = phase_bit_equal(device)
+    log(f"[13d/e] phase 13(d) and (e) took {time.perf_counter() - t0:.1f} s")
+    out["photons"], level = phase_photon_bits(device, card, photons)
+    out["segment_sum"] = phase_segment_sum(device, card, main_run, level)
+    return out
 
 
 def main():
@@ -3102,7 +3479,7 @@ def main():
     textured = phase_textured(device, card)
     photons = phase_photons(device, card)
     rest = phase_patches_and_parallel(device, card, photons["build"]["stats"])
-    phase_rounding(device)
+    rounding = phase_rounding(device, card, main_run, photons)
     import torch
     src = "cse168_raytracer_tpu_torch/csrc/traverse_wide.cu"
     replaces = "cse168_raytracer_tpu/ops/pallas_bvh.py:1056"
@@ -3115,6 +3492,7 @@ def main():
                 "spill_bytes": [k["spill_stores"] + k["spill_loads"]
                                 for k in ks]}
     src5 = "cse168_raytracer_tpu_torch/csrc/traverse_binary.cu"
+    seg = rounding["segment_sum"]["kd backward (main step)"]
     sah_launches = steps["pallas_sah step"]["launches"]
     kernels = [
         {"name": "traverse_wide closest+attr (W=4)", "route": "cuda",
@@ -3180,8 +3558,25 @@ def main():
          **{k: k5["k6"][k] for k in keys},
          **regs("tri_blocks_cull", "tri_blocks_test", "tri_blocks_finish",
                 prefix="")},
+        {"name": "segment_sum, fixed-order segmented sum (the gradient "
+                 "scatters), timed at the main step's kd backward",
+         "route": "cuda",
+         "source": "cse168_raytracer_tpu_torch/csrc/segment_sum.cu",
+         "replaces": "no TPU kernel: the transpose of "
+                     "cse168_raytracer_tpu/core/fastgather.py:38 take_rows "
+                     "(XLA's), a kernel of the port alone",
+         "launches": main_run["launches"]["segment_sum"],
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in rounding["segment_sum"].values()),
+         **{k: seg[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "embedding_ms", "sort_ms",
+                                "tiles_ms", "rows_ms")},
+         **regs("segsum_tiles", "segsum_rows", prefix="")},
     ]
     a, b = (cli_runs[("sponza_proxy", x)] for x in ("a", "b"))
+    log(f"[summary] segment_sum at the kd backward: {seg['ms']:.4f} ms, "
+        f"index_add {seg['library_ms']:.4f} ms, embedding_dense_backward "
+        f"{seg['embedding_ms']:.4f} ms")
     log(f"[summary] main path "
         f"{main_run['registered']['ms']:.3f} ms/step as registered, "
         f"{main_run['lit']['ms']:.3f} ms/step lit; cli render (a) "

@@ -95,6 +95,26 @@ def div_scalar(x: torch.Tensor, c) -> torch.Tensor:
     return x * float(np.float32(1.0) / np.float32(c))
 
 
+def sum_fixed(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x summed over `dim` in one fixed order on every device: the axis
+    padded to a power of two P with -0.0 (the additive identity, so a
+    sum of -0.0 stays -0.0), then halved, x[..., :h] + x[..., h:] for
+    h = P/2, ..., 1. Elementwise adds only, so the card rounds as the
+    CPU does; torch.sum reduces in each device's own order. It is the
+    order of a warp reduction whose lane l first sums positions l,
+    l + 32, ... by the same halving, then folds lanes by
+    __shfl_down_sync at offsets 16, ..., 1."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p > n:
+        x = torch.cat([x, x.new_full(x.shape[:-1] + (p - n,), -0.0)], -1)
+    while p > 1:
+        p //= 2
+        x = x[..., :p] + x[..., p:]
+    return x[..., 0]
+
+
 def ipow(x: torch.Tensor, n: int) -> torch.Tensor:
     """x ** n for an integer n >= 1 by repeated squaring, in the order of
     jax.lax.integer_pow (which jnp's `x ** 500` lowers to)."""

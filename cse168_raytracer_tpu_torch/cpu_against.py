@@ -7,10 +7,13 @@ the forward and the kd gradient of sum(render_hdr) of chip_smoke.py's
 phase 5 scenes (sphere and mixed_scene at 64x64, depth 4, Whitted, and
 mixed_scene path-traced at 2 spp on one seeded CPU generator),
 refract_spheres at 64x64 and test_sphere at 80x48 (the camera's
-divisions by a width and a height that are not powers of two). It
-prints, for each, how many pixels and kd-gradient entries differ in
-their bits between the two checkouts and the largest relative
-difference. Needs no GPU.
+divisions by a width and a height that are not powers of two); and
+photon maps built on chip_smoke.py's photon_box (a coarse glass sphere,
+20,000 + 20,000 photons from one seeded CPU generator), its 32x32
+depth-10 render with them and the gradient w.r.t. the global map's
+stored powers. It prints, for each, how many pixels, gradient entries
+or stored photons differ in their bits between the two checkouts and
+the largest relative difference. Needs no GPU.
 """
 
 from __future__ import annotations
@@ -53,7 +56,36 @@ def render(out):
         key = name + (" path-traced" if traced else "")
         arrays[key + " hdr"] = hdr.numpy()
         arrays[key + " grad"] = grad.numpy()
+    arrays.update(photons())
     np.savez(out, **arrays)
+
+
+def photons():
+    """photon_box's maps, render and global-power gradient (CPU)."""
+    import torch
+
+    import chip_smoke
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.ops.photon import build_photon_maps
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    chip_smoke.SPHERE_RINGS = 8
+    scene, static, cam = chip_smoke.photon_scene(torch.device("cpu"))
+    cfg = RenderConfig(**dict(chip_smoke.PHOTON_CFG, photons_per_light=20_000,
+                              caustic_photons_per_light=20_000))
+    maps = build_photon_maps(scene, static, cfg,
+                             torch.Generator().manual_seed(7))
+    g = maps.global_map
+    power = g.power.clone().requires_grad_(True)
+    lit = scene.replace(photons=maps.replace(global_map=g.replace(
+        power=power)))
+    hdr = render_hdr(lit, static, cam, RenderConfig(width=32, height=32,
+                                                    trace_depth=10))[0]
+    hdr.sum().backward()
+    return {"photon_box global map positions": g.pos.numpy(),
+            "photon_box caustic map positions":
+                maps.caustic_map.pos.numpy(),
+            "photon_box hdr": hdr.detach().numpy(),
+            "photon_box grad": power.grad.numpy()}
 
 
 def run_child(root, out):
@@ -88,6 +120,9 @@ def main(argv=None):
         other, this = runs
         for key in this.files:
             a, b = other[key], this[key]
+            if a.shape != b.shape:
+                print(f"{key}: shapes {a.shape} against {b.shape}")
+                continue
             differ = a.view(np.int32) != b.view(np.int32)
             n = int(differ.any(-1).sum()) if key.endswith("hdr") \
                 else int(differ.sum())

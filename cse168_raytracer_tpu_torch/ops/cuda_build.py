@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v")
 
 # every kernel source of the port
-SOURCES = ("traverse_wide.cu", "traverse_binary.cu", "tri_blocks.cu")
+SOURCES = ("traverse_wide.cu", "traverse_binary.cu", "tri_blocks.cu",
+           "segment_sum.cu")
 
 # the plain builds (no `defines`) this process used: {source: {"seconds",
 # "log", "path"}}, "seconds" None where the library was already built;

@@ -25,13 +25,16 @@ de-duplicated), up to max_per_cell photons a cell, a 12-step bisection
 of r'^2 on the candidates' fold weights to ~knn photons (Jensen's k-NN
 estimate), the facing test, and sum(P) / (pi r'^2); where the fine
 level holds fewer than knn photons within r and the coarse level
-(cell 8r) reaches knn, the coarse estimate. Only the stored powers get
-a gradient: distances feed masks alone and r'^2 is detached, as in the
-JAX function. `_Irradiance` is its autograd.Function: the forward runs
-without grad and keeps per point only (p, n, r'^2, level), and the
-backward re-derives each chunk's accepted candidates and scatters
-grad / (pi r'^2) into the powers of the level that point used, so no
-(N, 27, K) array outlives its chunk.
+(cell 8r) reaches knn, the coarse estimate. The sums over a point's
+candidates (the counts and the power) are vecmath.sum_fixed, one order
+on every device. Only the stored powers get a gradient: distances feed
+masks alone and r'^2 is detached, as in the JAX function.
+`_Irradiance` is its autograd.Function: the forward runs without grad
+and keeps per point only (p, n, r'^2, level), and the backward
+re-derives the accepted candidates, a fixed chunk of points at a time,
+and sums grad / (pi r'^2) by photon into the powers of the level that
+point used (ops/segment_sum.py, no atomics), so no (N, 27, K) array
+outlives its chunk.
 
 *Build* (`build_grid`, `_auto_radius`): host numpy copied from the JAX
 package, giving the same bytes (stable sort, over-full cells folded
@@ -55,13 +58,16 @@ from cse168_raytracer_tpu_torch.core.noise import floor_i32
 from cse168_raytracer_tpu_torch.core.sampling import (cosine_hemisphere,
                                                       fold_seed, phong_lobe,
                                                       stream, uniform)
-from cse168_raytracer_tpu_torch.core.vecmath import (dot, fresnel_rs, reflect,
-                                                     refract, safe_normalize)
+from cse168_raytracer_tpu_torch.core.vecmath import (div_scalar, dot,
+                                                     fresnel_rs, reflect,
+                                                     refract, safe_normalize,
+                                                     sum_fixed)
 from cse168_raytracer_tpu_torch.models.lights import (LIGHT_DIRECTIONAL_AREA,
                                                       sample_origin,
                                                       sample_photon_direction)
 from cse168_raytracer_tpu_torch.models.scene import Scene, SceneStatic
 from cse168_raytracer_tpu_torch.models.textures import diffuse_color
+from cse168_raytracer_tpu_torch.ops.segment_sum import segment_sum
 from cse168_raytracer_tpu_torch.ops.shading import trace_closest
 
 _H1, _H2, _H3 = 73856093, 19349663, 83492791  # classic spatial-hash primes
@@ -71,6 +77,9 @@ _OFFS = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1],
 # candidates (points x 27 x max_per_cell) a gather chunk holds: ~60
 # bytes each while the chunk is alive
 _CHUNK_CANDIDATES = {"cuda": 1 << 25, "cpu": 1 << 20}
+# the backward's chunk, the same on every device: its chunks' sums are
+# added one after another, so the chunk is part of the gradient's order
+_BACKWARD_CANDIDATES = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,19 +242,19 @@ def _gather_level(grid: PhotonGrid, p: torch.Tensor, n: torch.Tensor,
     photon count within the level radius (N,), r'^2 (N,))."""
     idx, d2, in_r, facing = _in_range(grid, p, n)
     wts = torch.where(in_r, grid.weight[idx], 0.0)
-    cnt_r = wts.sum(1)
+    cnt_r = sum_fixed(wts, 1)
     k = float(grid.knn)
     r = grid.radius
     lo = torch.zeros(p.shape[0], dtype=torch.float32, device=p.device)
     hi = (r * r).expand(p.shape[0]).clone()
     for _ in range(12):
         mid = 0.5 * (lo + hi)
-        cnt = torch.where(d2 < mid[:, None], wts, 0.0).sum(1)
+        cnt = sum_fixed(torch.where(d2 < mid[:, None], wts, 0.0), 1)
         ge = cnt >= k
         hi = torch.where(ge, mid, hi)
         lo = torch.where(ge, lo, mid)
     accept = in_r & (d2 < hi[:, None]) & facing
-    total = torch.where(accept[..., None], power[idx], 0.0).sum(1)
+    total = sum_fixed(torch.where(accept[..., None], power[idx], 0.0), 1)
     return total / (PI * hi[:, None]), cnt_r, hi
 
 
@@ -257,11 +266,18 @@ def _accepted(grid: PhotonGrid, p: torch.Tensor, n: torch.Tensor,
 
 
 def gather_chunk(grid: PhotonGrid, device: torch.device) -> int:
-    """Points a gather chunk of `grid` holds on `device`: a fixed
-    candidate budget per device type. The answer does not depend on
-    it."""
+    """Points a forward gather chunk of `grid` holds on `device`: a
+    fixed candidate budget per device type. Neither the irradiance nor
+    the gradient depends on it: each point's sums are its own, and the
+    backward takes its own chunk (backward_chunk)."""
     budget = _CHUNK_CANDIDATES.get(device.type, _CHUNK_CANDIDATES["cpu"])
     return max(1, budget // (27 * grid.max_per_cell))
+
+
+def backward_chunk(grid: PhotonGrid) -> int:
+    """Points a backward chunk of `grid` holds, the same on every
+    device."""
+    return max(1, _BACKWARD_CANDIDATES // (27 * grid.max_per_cell))
 
 
 def _chunks(nn: int, chunk: int):
@@ -293,20 +309,24 @@ def gather_levels(grid: PhotonGrid, p: torch.Tensor, n: torch.Tensor,
 
 class _Irradiance(torch.autograd.Function):
     """grid_irradiance with the gradient of the stored powers (fine
-    level and coarse level) and nothing else, recomputed chunk by chunk
-    in the backward from the saved points, normals, r'^2 and level."""
+    level and coarse level) and nothing else, recomputed in the backward
+    from the saved points, normals, r'^2 and level, backward_chunk
+    points at a time: each chunk's accepted (point, candidate) terms
+    grad / (pi r'^2), in point-major order, summed by photon with
+    ops/segment_sum.py, and the chunks' sums added in chunk order. That
+    order is the same on every device and at any forward chunk."""
 
     @staticmethod
     def forward(ctx, grid, chunk, p, n, power, coarse_power):
         irr, r2, r2_c, use_c = gather_levels(grid, p, n, power, coarse_power,
                                              chunk)
-        ctx.grid, ctx.chunk = grid, chunk
+        ctx.grid = grid
         ctx.save_for_backward(p, n, r2, r2_c, use_c)
         return irr
 
     @staticmethod
     def backward(ctx, g):
-        grid, chunk = ctx.grid, ctx.chunk
+        grid = ctx.grid
         p, n, r2, r2_c, use_c = ctx.saved_tensors
         levels = [(grid, r2, ~use_c, 4)]
         if grid.coarse is not None:
@@ -316,11 +336,12 @@ class _Irradiance(torch.autograd.Function):
             if not ctx.needs_input_grad[slot]:
                 continue
             gp = torch.zeros_like(level.power)
-            for cs in _chunks(p.shape[0], chunk):
+            for cs in _chunks(p.shape[0], backward_chunk(level)):
                 idx, acc = _accepted(level, p[cs], n[cs], l_r2[cs])
                 pt, cand = torch.nonzero(acc & mine[cs, None], as_tuple=True)
                 w = g[cs] / (PI * l_r2[cs, None])
-                gp.index_add_(0, idx[pt, cand], w[pt])
+                gp = gp + segment_sum(w[pt], idx[pt, cand],
+                                      level.power.shape[0])
             grads[slot] = gp
         return tuple(grads)
 
@@ -331,9 +352,9 @@ def grid_irradiance(grid: PhotonGrid, p: torch.Tensor, n: torch.Tensor,
     (JAX ops/photon.py:178-308): the fine level's density-adaptive
     gather, and the coarse level's where the fine one holds fewer than
     knn photons within its radius and the coarse one reaches knn.
-    Points go `chunk` at a time (default: gather_chunk); the answer
-    does not depend on it. Differentiable in grid.power and
-    grid.coarse.power only."""
+    Points go `chunk` at a time (default: gather_chunk); neither the
+    answer nor its gradient depends on it. Differentiable in grid.power
+    and grid.coarse.power only."""
     if chunk is None:
         chunk = gather_chunk(grid, p.device)
     coarse_power = None if grid.coarse is None else grid.coarse.power
@@ -395,9 +416,19 @@ class StoredBatch:
     bounces: torch.Tensor  # (L,) int64 photons alive and hitting a level
 
 
+def emitted_power(p0: torch.Tensor, area: torch.Tensor,
+                  caustic: bool) -> torch.Tensor:
+    """A directional-area light's photon power p0 * area, a tenth of it
+    for caustic photons, divided as the jitted JAX tracer divides
+    (vecmath.div_scalar; a global photon's is not divided at all)."""
+    p0 = p0 * area
+    return div_scalar(p0, 10.0) if caustic else p0
+
+
 def _avg(x: torch.Tensor) -> torch.Tensor:
-    """Mean over the last axis of 3, summed left to right."""
-    return ((x[..., 0] + x[..., 1]) + x[..., 2]) / 3.0
+    """Mean over the last axis of 3, summed left to right and divided as
+    jitted jnp.mean divides (vecmath.div_scalar)."""
+    return div_scalar((x[..., 0] + x[..., 1]) + x[..., 2], 3.0)
 
 
 @torch.no_grad()
@@ -417,8 +448,8 @@ def trace_photon_batch(scene: Scene, static: SceneStatic, light_i: int,
     # power = color * wattage * pi * r^2 (/10 caustic), Scene.cpp:380-385
     p0 = lt.color[light_i] * lt.wattage[light_i]
     if lt.kinds[light_i] == LIGHT_DIRECTIONAL_AREA:
-        area = PI * (lt.radius[light_i] * lt.radius[light_i])
-        p0 = p0 * area / (10.0 if caustic else 1.0)
+        p0 = emitted_power(p0, PI * (lt.radius[light_i] * lt.radius[light_i]),
+                           caustic)
     power = p0.expand(n_emit, 3)
     alive = torch.ones(n_emit, dtype=torch.bool, device=dev)
     up = torch.tensor([0.0, 0.0, 1.0], device=dev)

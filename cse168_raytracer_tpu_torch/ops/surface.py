@@ -36,6 +36,7 @@ from cse168_raytracer_tpu_torch.models.geometry import (BLPatchPool,
 from cse168_raytracer_tpu_torch.ops.intersect import (PRIM_BLPATCH,
                                                       PRIM_PLANE, PRIM_SPHERE,
                                                       PRIM_TRI, Hit)
+from cse168_raytracer_tpu_torch.ops.segment_sum import segment_sum
 
 
 @dataclasses.dataclass
@@ -65,8 +66,9 @@ class ReattachRows(torch.autograd.Function):
     (cse168_raytracer_tpu/ops/surface.py _reattach_rows).
 
     Forward: the rows pass through. Backward: the VJP that
-    `pack_attr_rows(pack)[ids]` would have, a scatter-add of the row
-    cotangent into an (n_rows, 29) table sliced back into the per-field
+    `pack_attr_rows(pack)[ids]` would have, the row cotangents summed by
+    triangle into an (n_rows, 29) table (ops/segment_sum.py: one fixed
+    order on every device, no atomics) sliced back into the per-field
     gradients of v0 e1 e2 n_geo n0 n1 n2 t0 t1 t2."""
 
     @staticmethod
@@ -78,8 +80,7 @@ class ReattachRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        tab = torch.zeros((ctx.n_rows, 29), dtype=g.dtype, device=g.device)
-        tab.index_add_(0, ids.long(), g[:, :29])
+        tab = segment_sum(g[:, :29], ids.long(), ctx.n_rows)
         widths = (3, 3, 3, 3, 3, 3, 3, 2, 2, 2)
         grads, c = [], 0
         for w in widths:

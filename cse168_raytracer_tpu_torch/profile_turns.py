@@ -2,7 +2,7 @@
 the repository, in turns, on one NVIDIA GPU.
 
     python3 cse168_raytracer_tpu_torch/profile_turns.py --against DIR
-        [--rounds 3] [--steps 10]
+        [--rounds 3] [--steps 10] [--photons]
 
 One run, a process of its own on the package of the checkout --root,
 builds sponza_proxy at 512x512, trace depth 4, with the "auto"
@@ -12,8 +12,11 @@ kd (chip_smoke.py's phase 4), as registered and lit (its light at
 CUDA events recorded at its start and at the next step's start, with no
 synchronisation between steps; then it runs `cli render --scene
 sponza_proxy --stats` at 512x512, depth 4 (phase 8(a)) and takes its
-steady render's time on the host clock. It prints `RESULT {json}` with
-a digest of the lit image. With --against DIR it runs DIR's package and
+steady render's time on the host clock. With --photons it also builds
+chip_smoke.py's phase 11 photon maps on photon_box (seed 7) and times
+the 512x512, depth-10 photon-mapped forward and irradiance_estimate on
+65,536 level-0 diffuse points (CUDA events, --steps each after a
+warm-up). It prints `RESULT {json}` with a digest of the lit image. With --against DIR it runs DIR's package and
 this checkout's in turns (DIR, this, this, DIR), --rounds times, and
 prints for each quantity and side the median of the runs' medians, the
 range of the runs' medians (the run-to-run spread), the median and
@@ -39,9 +42,50 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES = 512
 DEPTH = 4
 STEPS = ("registered", "lit")
+PHOTON_STEPS = ("photon_fwd", "gather")
 
 
-def measure(steps):
+def timed(fn, steps):
+    """ms of each of `steps` calls of fn after a warm-up, by CUDA events
+    recorded between the calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    events[0].record()
+    for ev in events[1:]:
+        fn()
+        ev.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def measure_photons(steps):
+    """The photon-mapped forward and the gather on the package first on
+    sys.path (chip_smoke.py's phase 11 configuration)."""
+    import torch
+
+    import chip_smoke
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.ops.photon import (build_photon_maps,
+                                                       irradiance_estimate)
+    from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    dev = torch.device("cuda:0")
+    scene, static, cam = chip_smoke.photon_scene(dev)
+    maps = build_photon_maps(scene, static,
+                             RenderConfig(**chip_smoke.PHOTON_CFG),
+                             torch.Generator(device=dev).manual_seed(7))
+    lit = scene.replace(photons=maps)
+    cfg = RenderConfig(width=RES, height=RES, trace_depth=10)
+    p, n = chip_smoke.diffuse_points(scene, static, cam, 65_536, RES)
+    with torch.no_grad():
+        return {"photon_fwd": timed(lambda: render_hdr(lit, static, cam,
+                                                       cfg), steps),
+                "gather": timed(lambda: irradiance_estimate(maps, p, n),
+                                steps)}
+
+
+def measure(steps, photons=False):
     """One run on the package first on sys.path."""
     import torch
 
@@ -72,19 +116,10 @@ def measure(steps):
             hdr.sum().backward()
             return hdr.detach()
 
-        hdr = step()
-        torch.cuda.synchronize()
-        events = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(steps + 1)]
-        events[0].record()
-        for ev in events[1:]:
-            step()
-            ev.record()
-        torch.cuda.synchronize()
-        out[label] = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        out[label] = timed(step, steps)
         if label == "lit":
             out["digest"] = hashlib.sha256(
-                hdr.cpu().numpy().tobytes()).hexdigest()[:16]
+                step().cpu().numpy().tobytes()).hexdigest()[:16]
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["render", "--scene", "sponza_proxy", "--width", str(RES),
                 "--height", str(RES), "--depth", str(DEPTH), "--stats",
@@ -92,14 +127,16 @@ def measure(steps):
         with contextlib.redirect_stderr(io.StringIO()):
             res = cli.render(cli.parser().parse_args(argv))
     out["cli"] = [res["steady_s"] * 1e3]
+    if photons:
+        out.update(measure_photons(steps))
     return out
 
 
-def run_child(root, steps):
+def run_child(root, steps, photons):
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--root", root,
-         "--steps", str(steps)], capture_output=True, text=True,
-        timeout=900, cwd=root)
+         "--steps", str(steps)] + (["--photons"] if photons else []),
+        capture_output=True, text=True, timeout=900, cwd=root)
     for line in proc.stdout.splitlines():
         if line.startswith("RESULT "):
             return json.loads(line[len("RESULT "):])
@@ -126,27 +163,30 @@ def main(argv=None):
                     help="the checkout whose package is measured")
     ap.add_argument("--against", default=None, metavar="DIR",
                     help="another checkout to time in turns with this one")
+    ap.add_argument("--photons", action="store_true",
+                    help="also time the photon-mapped forward and gather")
     args = ap.parse_args(argv)
     if args.against is None:
         sys.path.insert(0, os.path.abspath(args.root))
-        print("RESULT " + json.dumps(measure(args.steps)), flush=True)
+        print("RESULT " + json.dumps(measure(args.steps, args.photons)),
+              flush=True)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     other = os.path.abspath(args.against)
     runs = {"against": [], "this": []}
+    keys = STEPS + ("cli",) + (PHOTON_STEPS if args.photons else ())
     for i in range(args.rounds):
         for label, root in (("against", other), ("this", HERE),
                             ("this", HERE), ("against", other)):
-            r = run_child(root, args.steps)
+            r = run_child(root, args.steps, args.photons)
             runs[label].append(r)
             print(f"[round {i}] {label}: " + ", ".join(
                 f"{k} median {statistics.median(r[k]):.3f} ms"
-                for k in STEPS + ("cli",)) + f"; lit image {r['digest']}",
-                flush=True)
+                for k in keys) + f"; lit image {r['digest']}", flush=True)
     result = {"card": card, "runs": runs, "summary": {}}
-    for k in STEPS + ("cli",):
+    for k in keys:
         result["summary"][k] = {lab: summary(rs, k)
                                 for lab, rs in runs.items()}
         a, t = (result["summary"][k][lab] for lab in ("against", "this"))

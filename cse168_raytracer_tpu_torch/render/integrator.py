@@ -143,7 +143,10 @@ def add_in_lane_order(radiance: torch.Tensor, pixel: torch.Tensor,
     in one level; a highlight's ipow(x, 500) is often subnormal). Here a
     stable sort groups each pixel's lanes in lane order, and pass k adds
     every pixel's k-th term by a gather and a plain store, one lane a
-    pixel, so no atomic is involved. Dead lanes add nothing."""
+    pixel, so no atomic is involved. Dead lanes add nothing. A pass per
+    term suits a pixel's few terms a level; a sum into a zeroed table
+    whose rows take many terms (a gradient scatter) is
+    ops/segment_sum.py's tree, in a fixed number of launches."""
     n = pixel.shape[0]
     sentinel = radiance.shape[0]
     key, perm = torch.sort(torch.where(alive, pixel, sentinel), stable=True)
@@ -208,8 +211,12 @@ def integrate(scene: Scene, static: SceneStatic, o, d, pixel,
         if scene.photons is not None:
             lanes = torch.nonzero(
                 live_hit & is_diffuse(mats, surf.material_id))[:, 0]
-            direct = direct.index_add(0, lanes, irradiance_estimate(
-                scene.photons, surf.p[lanes], surf.n[lanes]))
+            # the lanes are distinct: a plain store of direct + estimate,
+            # JAX's add, with no atomic
+            direct = direct.index_put((lanes,), direct[lanes]
+                                      + irradiance_estimate(
+                                          scene.photons, surf.p[lanes],
+                                          surf.n[lanes]))
         # env on a miss (Scene.cpp:338-342); camera rays are never diffuse
         env = env_lookup(scene.env, wf.d, no_diffuse)
         add = torch.where(live_hit[:, None], direct,

@@ -560,3 +560,52 @@ def test_whitted_64_card_equals_cpu(cuda, name):
             hdrs.append(render_hdr(attach_accel(scene), static, cam,
                                    cfg)[0].cpu())
     assert float(hdrs[0].max()) > 0 and torch.equal(*hdrs)
+
+
+def test_segment_sum_kernel_equals_plain_on_card(cuda):
+    """csrc/segment_sum.cu against segment_sum_plain by torch.equal, and
+    against itself over two runs: runs of 1 to 3,000 terms, empty rows,
+    -0.0 and subnormal terms, 1, 3 and 29 columns, and a run of 2^21
+    terms (the rows pass's second level)."""
+    from cse168_raytracer_tpu_torch.ops import segment_sum as ss
+    rng = np.random.default_rng(3)
+    ids = np.concatenate([np.zeros(3000, np.int64), np.full(1025, 1),
+                          np.full(1024, 3), [6], rng.integers(8, 64, 900)])
+    rng.shuffle(ids)
+    cases = []
+    for cols in (1, 3, 29):
+        v = (rng.normal(0, 1, (ids.size, cols))
+             * np.exp(rng.normal(0, 6, (ids.size, cols)))).astype(np.float32)
+        v.reshape(-1)[::11] = -0.0
+        v.reshape(-1)[5::13] = np.float32(1e-40)
+        cases.append((v, ids, 70))
+    cases.append((rng.normal(0, 1, ((1 << 21), 1)).astype(np.float32),
+                  np.zeros(1 << 21, np.int64), 2))
+    for v, i, n_rows in cases:
+        tv, ti = torch.as_tensor(v), torch.as_tensor(i)
+        want = ss.segment_sum_plain(tv, ti, n_rows)
+        before = ss.LAUNCHES["segment_sum"]
+        a = ss.segment_sum(tv.to(cuda), ti.to(cuda), n_rows)
+        b = ss.segment_sum(tv.to(cuda), ti.to(cuda), n_rows)
+        assert ss.LAUNCHES["segment_sum"] == before + 2
+        assert torch.equal(a.cpu(), want) and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["sphere", "mixed"])
+def test_kd_grad_64_card_equals_cpu(cuda, name):
+    """The kd gradient of sum(hdr) at 64x64, depth 4, on the card and on
+    the CPU: equal by torch.equal (the kd lookups' backward is
+    ops/segment_sum.py on both)."""
+    from chip_smoke import fwd_bwd, mixed_scene
+    from cse168_raytracer_tpu_torch.config import RenderConfig
+    from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+    from cse168_raytracer_tpu_torch.scenes import build
+    cfg = RenderConfig(width=64, height=64, trace_depth=4)
+    grads = []
+    for dev in (torch.device("cpu"), cuda):
+        if name == "mixed":
+            scene, static, cam = mixed_scene(dev)
+        else:
+            scene, static, cam, _ = build(name, cfg, device=dev)
+        grads.append(fwd_bwd(attach_accel(scene), static, cam, cfg)[1].cpu())
+    assert float(grads[0].abs().sum()) > 0 and torch.equal(*grads)

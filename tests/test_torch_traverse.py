@@ -407,6 +407,17 @@ template <class T> inline T __shfl_sync(unsigned m, T v, int src) {
   memcpy(&r, &b, sizeof(T));
   return r;
 }
+template <class T> inline T __shfl_down_sync(unsigned m, T v, unsigned d) {
+  const int lane = threadIdx.x & 31;
+  return __shfl_sync(m, v, lane + (int)d < 32 ? lane + (int)d : lane);
+}
+inline void __syncwarp(unsigned m = 0xffffffffu) {
+  if (m != 0xffffffffu) {
+    fprintf(stderr, "__syncwarp over part of a warp\n");
+    abort();
+  }
+  emu_warp->bar.arrive_and_wait();
+}
 inline unsigned __ballot_sync(unsigned m, int pred) {
   const uint64_t* b = emu_exchange(pred ? 1 : 0, m);
   unsigned r = 0;
