@@ -97,8 +97,11 @@ to the ops PHOTON_ROUNDED names), and that gradient at two forward
 chunks; (g) the segment-sum kernel (csrc/segment_sum.cu, the gradient
 scatters) against its plain version and against itself, by
 torch.equal, at the kd backward of the main step, a single run of all
-its terms, ReattachRows' backward, a photon backward level and a run of
-2^21 terms, timed beside index_add and embedding_dense_backward.
+its terms, ReattachRows' backward, a photon backward level, a run of
+2^21 terms, random ids on 2^19 + 1 rows at 29 columns and runs of 1-64
+terms; its sort against torch.sort's permutation, no sort with one row;
+timed with its sort / sums / zero-fill split beside index_add and
+embedding_dense_backward, its device operations a call counted.
 Each phase prints its own lines; any failure raises and exits non-zero.
 The second-to-last line is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device it
@@ -492,15 +495,14 @@ def phase_build():
                 f"{k['smem']} bytes static shared memory, spill stores "
                 f"{k['spill_stores']} bytes, loads {k['spill_loads']} bytes")
     # the card walks' twelve instantiations (K1-K4's eight, K5's four),
-    # K6's three kernels and the segmented sum's two, each reported and
+    # K6's three kernels and the segmented sum's five, each reported and
     # spilling nothing: spills would put their operands in local memory
     names = [f"traverse_warp W={w} {mode}{stats}" for w in (4, 8)
              for mode in ("closest", "any") for stats in ("", " stats")]
     names += [f"traverse_binary_warp {mode}{stats}"
               for mode in ("closest", "any") for stats in ("", " stats")]
     for name in names + ["tri_blocks_cull", "tri_blocks_test",
-                         "tri_blocks_finish", "segsum_tiles",
-                         "segsum_rows"]:
+                         "tri_blocks_finish", *SEGSUM_KERNELS]:
         k = ptxas.get(name)
         if k is None:
             raise RuntimeError(f"phase 2: nvcc's report has no {name}")
@@ -513,11 +515,16 @@ def phase_build():
     return build_s, ptxas
 
 
+# csrc/segment_sum.cu's kernels
+SEGSUM_KERNELS = ("segsum_hist", "segsum_sort_pass", "segsum_runs",
+                  "segsum_tiles", "segsum_short")
+
+
 def ptxas_kernels(text):
     """{kernel: {"registers", "smem", "spill_stores", "spill_loads"}}
     from nvcc's -Xptxas -v report; the kernels named as "traverse_warp
     W=4 closest", "traverse_warp W=8 any stats", "traverse_binary_warp
-    any stats", "tri_blocks_test" or "segsum_tiles"."""
+    any stats", "tri_blocks_test" or "segsum_short"."""
     import re
     out, cur = {}, None
     for line in text.splitlines():
@@ -537,8 +544,9 @@ def ptxas_kernels(text):
                        + (" stats" if b.group(2) == "1" else ""))
             elif re.search(r"tri_blocks_(cull|test|finish)", cur):
                 cur = re.search(r"tri_blocks_(cull|test|finish)", cur).group(0)
-            elif re.search(r"segsum_(tiles|rows)", cur):
-                cur = re.search(r"segsum_(tiles|rows)", cur).group(0)
+            elif re.search(r"segsum_(hist|sort_pass|runs|tiles|short)", cur):
+                cur = re.search(r"segsum_(hist|sort_pass|runs|tiles|short)",
+                                cur).group(0)
             out.setdefault(cur, {"registers": 0, "smem": 0,
                                  "spill_stores": 0, "spill_loads": 0})
             continue
@@ -711,7 +719,8 @@ def phase_main_path(device):
     out = {"scene": scene, "static": static, "cam": cam, "build_s": build_s}
     for k in wide_bvh.LAUNCHES:
         wide_bvh.LAUNCHES[k] = 0
-    segment_sum.LAUNCHES["segment_sum"] = 0
+    for k in segment_sum.LAUNCHES:
+        segment_sum.LAUNCHES[k] = 0
     for label, s in (("registered", scene), ("lit", lit_sponza(scene))):
         torch.cuda.reset_peak_memory_stats(device)
         hdr, grad, stats, ms, host_ms = timed_steps(s, static, cam, cfg,
@@ -3332,34 +3341,80 @@ def record_segment_sum(module, fn):
 
 SEGSUM_REPS = 20
 SEGSUM_BIG_RUN = 1 << 21
+SEGSUM_WIDE_ROWS = (1 << 19) + 1     # 20 key bits
+SEGSUM_WIDE_TERMS = 1 << 18
+
+
+def segsum_synthetic(device, seed=SEED):
+    """13(g)'s shapes made from a seed: a run of SEGSUM_BIG_RUN terms;
+    SEGSUM_WIDE_TERMS x 29 terms on SEGSUM_WIDE_ROWS rows (random ids);
+    runs of 1-64 terms, 262,144 x 3, their lanes shuffled."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {f"one run of {SEGSUM_BIG_RUN}": (
+        torch.randn((SEGSUM_BIG_RUN, 1), generator=g, device=device),
+        torch.zeros(SEGSUM_BIG_RUN, dtype=torch.int64, device=device), 1)}
+    out["random ids, 20 bits, 29 columns"] = (
+        torch.randn((SEGSUM_WIDE_TERMS, 29), generator=g, device=device),
+        torch.randint(0, SEGSUM_WIDE_ROWS, (SEGSUM_WIDE_TERMS,), generator=g,
+                      device=device), SEGSUM_WIDE_ROWS)
+    n = 1 << 18
+    lens = torch.randint(1, 65, (n // 32,), generator=g, device=device)
+    ids = torch.repeat_interleave(torch.arange(lens.numel(), device=device),
+                                  lens)[:n]
+    ids = ids[torch.randperm(ids.numel(), generator=g, device=device)]
+    out["runs of 1-64"] = (torch.randn((ids.numel(), 3), generator=g,
+                                       device=device), ids, lens.numel())
+    return out
+
+
+def device_ops(fn):
+    """The device operations (kernels, memsets, copies) of one fn() call,
+    by torch.profiler: a list of (name, device us), namespaces, templates
+    and arguments cut from the names. A trace that caught no device
+    operation (seen now and then on the card) is taken again, up to three
+    times; None if every one came back empty."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+    ops = []
+    for e in events:
+        name = e.name.replace("(anonymous namespace)::", "")
+        if not name.startswith(("Memset", "Memcpy")):
+            name = name.removeprefix("void ").split("<")[0].split("(")[0]
+        ops.append((name.split("::")[-1], e.time_range.elapsed_us()))
+    return ops or None
 
 
 def segment_sum_split(values, ids, n_rows, reps=SEGSUM_REPS):
-    """ms of segment_sum's parts by CUDA events: the sort (with the row
-    bounds' search), both launches, and the rows pass alone (a launch
-    with no tiles; its output is not read)."""
-    import ctypes
+    """ms of a segment_sum call's parts by CUDA events, on one scratch:
+    the sort (with the counts and the scan into runs; 0 with one row),
+    the sums alone (over the lists an earlier call left) and the
+    zero-fill (0 with one row)."""
     import torch
     from cse168_raytracer_tpu_torch.ops import segment_sum as ss
     n, cols = values.shape
-    perm, row_start = ss._runs(ids, n_rows)
-    bound = n_rows + n // ss.TILE
-    partial = torch.empty((bound, cols), device=values.device)
+    perm = torch.empty(n, dtype=torch.int32, device=values.device)
     out = torch.empty((n_rows, cols), device=values.device)
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
-    lib = ss._kernel_lib()
+    scratch = ss.scratch_for(n, cols, n_rows, values.device)
 
-    def launch(slots):
-        rc = lib.segment_sum_launch(
-            ptr(values), cols, ptr(perm), ptr(row_start), n_rows, slots,
-            ptr(partial), ptr(out), ctypes.c_void_p(
-                torch.cuda.current_stream().cuda_stream))
-        if rc:
-            raise RuntimeError(f"segment_sum launch failed: {rc}")
-    both = time_cuda(lambda: launch(bound), reps)
-    rows = time_cuda(lambda: launch(0), reps)
-    return {"sort_ms": time_cuda(lambda: ss._runs(ids, n_rows), reps),
-            "launches_ms": both, "tiles_ms": both - rows, "rows_ms": rows}
+    def part(p):
+        return lambda: ss.run_parts(values, ids, n_rows, perm, scratch, out,
+                                    p)
+    part(ss.SORT | ss.SUMS | ss.ZERO)()
+    sort = n_rows > 1
+    return {"sort_ms": time_cuda(part(ss.SORT), reps) if sort else 0.0,
+            "sums_ms": time_cuda(part(ss.SUMS), reps),
+            "zero_ms": time_cuda(part(ss.ZERO), reps) if sort else 0.0}
 
 
 def phase_segment_sum(device, card, main_run, photon_level):
@@ -3368,10 +3423,14 @@ def phase_segment_sum(device, card, main_run, photon_level):
     the paths give it: the main step's kd backward (recorded from a lit
     step), the same terms in a single run of all, ReattachRows' backward
     of a lit step w.r.t. the triangles' v0 (recorded), 13(f)'s largest
-    photon backward call, and a run of SEGSUM_BIG_RUN terms (the rows
-    pass's second level). Timed at each shape: the kernel (sort and
-    launches), its parts, the plain version, and the PyTorch calls that
-    compute the same sum, index_add and embedding_dense_backward."""
+    photon backward call, and segsum_synthetic's (a run of
+    SEGSUM_BIG_RUN: more than 1,024 tiles; random ids on 2^19 + 1 rows at
+    29 columns; runs of 1-64). Where there is more than one row the
+    kernel's sort equals torch.sort(stable=True)'s permutation; with one
+    row it runs no sort. Timed at each shape: the kernel, its sort, sums
+    and zero-fill, the plain version, and the PyTorch calls that compute
+    the same sum, index_add and embedding_dense_backward; the device
+    operations of a call counted by torch.profiler."""
     import torch
     from cse168_raytracer_tpu_torch.core import fastgather
     from cse168_raytracer_tpu_torch.ops import segment_sum as ss
@@ -3390,33 +3449,39 @@ def phase_segment_sum(device, card, main_run, photon_level):
         s = lit.replace(tris=lit.tris.replace(v0=v0))
         render_hdr(s, static, cam, cfg)[0].sum().backward()
     tri = record_segment_sum(surface, v0_step)
-    g = torch.Generator(device=device).manual_seed(SEED)
-    big = torch.randn((SEGSUM_BIG_RUN, 1), generator=g, device=device)
     shapes = {
         "kd backward (main step)": kd,
         "kd backward, one run of all": (kd[0], torch.zeros_like(kd[1]),
                                         kd[2]),
         "ReattachRows backward (v0)": tri,
         "photon backward (13(f))": photon_level,
-        f"one run of {SEGSUM_BIG_RUN}": (big, torch.zeros(
-            SEGSUM_BIG_RUN, dtype=torch.int64, device=device), 1)}
+        **segsum_synthetic(device)}
     out = {}
     for label, (v, ids, n_rows) in shapes.items():
         v, ids = v.contiguous(), ids.long().contiguous()
         want = ss.segment_sum_plain(v, ids, n_rows)
+        sorts = ss.LAUNCHES["segment_sort"]
         a = ss.segment_sum(v, ids, n_rows)
         b = ss.segment_sum(v, ids, n_rows)
+        sorted_ = ss.LAUNCHES["segment_sort"] - sorts
         torch.cuda.synchronize()
         same, again = torch.equal(a, want), torch.equal(a, b)
+        order = (torch.equal(ss.stable_order(ids, n_rows).long(),
+                             torch.sort(ids, stable=True)[1])
+                 if n_rows > 1 else None)
         err = float((a - want).abs().max())
         n, cols = v.shape
         runs = torch.bincount(ids, minlength=n_rows)
-        nbytes = n * cols * 4 + n * 8 + n_rows * cols * 4
+        # the ids are read only where a sort runs (more than one row)
+        nbytes = (n * cols * 4 + (n * 8 if n_rows > 1 else 0)
+                  + n_rows * cols * 4)
         zeros = torch.zeros((n_rows, cols), device=device)
+        ops = device_ops(lambda: ss.segment_sum(v, ids, n_rows))
         row = dict(
             terms=n, cols=cols, rows=n_rows, longest=int(runs.max()),
             empty=int((runs == 0).sum()), equal=same, repeat=again,
-            max_abs_err=err,
+            sort_equal=order, max_abs_err=err,
+            launches=len(ops) if ops else None,
             ms=time_cuda(lambda: ss.segment_sum(v, ids, n_rows),
                          SEGSUM_REPS),
             plain_ms=time_cuda(lambda: ss.segment_sum_plain(v, ids, n_rows),
@@ -3432,15 +3497,25 @@ def phase_segment_sum(device, card, main_run, photon_level):
         log(f"[13g segment_sum] {label}: {n} x {cols} terms on {n_rows} "
             f"rows (longest run {row['longest']}, {row['empty']} empty): "
             f"kernel = plain by torch.equal {same}, run twice equal "
-            f"{again}, max |err| {err:.3g}; kernel {row['ms']:.4f} ms (sort "
-            f"{row['sort_ms']:.4f}, tiles pass {row['tiles_ms']:.4f}, rows "
-            f"pass {row['rows_ms']:.4f}), plain {row['plain_ms']:.3f} ms, "
-            f"index_add {row['library_ms']:.4f} ms, "
-            f"embedding_dense_backward {row['embedding_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms (bytes); card {card}")
-        if not (same and again):
+            f"{again}, sort = torch.sort {order}, sorts launched "
+            f"{sorted_} in two calls, max |err| {err:.3g}; kernel "
+            f"{row['ms']:.4f} ms (sort {row['sort_ms']:.4f}, sums "
+            f"{row['sums_ms']:.4f}, zero-fill {row['zero_ms']:.4f}), "
+            + (f"{len(ops)} device operations a call (profiled us: "
+               + ", ".join(f"{o} {us:.1f}" for o, us in ops) + "), "
+               if ops else "device operations a call not measured (the "
+               "trace caught none), ") +
+            f"plain {row['plain_ms']:.3f} ms, index_add "
+            f"{row['library_ms']:.4f} ms, embedding_dense_backward "
+            f"{row['embedding_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"(bytes); card {card}")
+        if not (same and again and order in (True, None)):
             raise AssertionError(f"13g {label}: the kernel differs from its "
-                                 "plain version or from itself")
+                                 "plain version or from itself, or its sort "
+                                 "from torch.sort")
+        if sorted_ != (2 if n_rows > 1 else 0):
+            raise AssertionError(f"13g {label}: {sorted_} sorts in two calls "
+                                 f"on {n_rows} rows")
     log(f"[13g segment_sum] phase 13(g) took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return out
@@ -3566,12 +3641,15 @@ def main():
                      "cse168_raytracer_tpu/core/fastgather.py:38 take_rows "
                      "(XLA's), a kernel of the port alone",
          "launches": main_run["launches"]["segment_sum"],
+         "sort_launches": main_run["launches"]["segment_sort"],
          "max_abs_err": max(r["max_abs_err"]
                             for r in rounding["segment_sum"].values()),
          **{k: seg[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "embedding_ms", "sort_ms",
-                                "tiles_ms", "rows_ms")},
-         **regs("segsum_tiles", "segsum_rows", prefix="")},
+                                "sums_ms", "zero_ms")},
+         "device_ops_a_call": {k: r["launches"] for k, r in
+                               rounding["segment_sum"].items()},
+         **regs(*SEGSUM_KERNELS, prefix="")},
     ]
     a, b = (cli_runs[("sponza_proxy", x)] for x in ("a", "b"))
     log(f"[summary] segment_sum at the kd backward: {seg['ms']:.4f} ms, "

@@ -33,11 +33,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cse168_raytracer_tpu_torch.config import EPSILON
+
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Dot product over the last axis (length 3): (a0 b0 + a1 b1) + a2 b2."""
     p = a * b
     return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+
+def length2(a: torch.Tensor) -> torch.Tensor:
+    """The squared norm over the last axis (JAX core/vecmath.py:39
+    length2): dot(a, a)'s fixed order for 3-vectors, a sum otherwise."""
+    if a.shape[-1] == 3:
+        return dot(a, a)
+    return (a * a).sum(-1)
+
+
+def length(a: torch.Tensor) -> torch.Tensor:
+    """The norm over the last axis (JAX core/vecmath.py:43 length), its
+    root through sqrt_rn."""
+    return sqrt_rn(length2(a))
+
+
+def offset_ray_origin(p: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """A secondary ray's origin moved EPSILON along its direction, the
+    reference's `origin + epsilon * dir` (JAX core/vecmath.py:191
+    offset_ray_origin; Ray.h:91, Scene.cpp:535, Phong.cpp:92)."""
+    return p + EPSILON * d
 
 
 def dotk(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -16,12 +16,24 @@ For ray (o, d) with moment m = cross(o, d) and triangle
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from cse168_raytracer_tpu_torch.config import resolve_device
+
+
+class Mesh(NamedTuple):
+    """Loaded OBJ mesh arrays in TriangleMesh.h's structure-of-arrays
+    layout (JAX models/geometry.py:20 Mesh). models/obj.load_obj returns
+    the same fields as a dict of numpy arrays."""
+    vertices: torch.Tensor   # (V, 3) float32
+    normals: torch.Tensor    # (N, 3) float32
+    texcoords: torch.Tensor  # (TC, 2) float32 (may be empty)
+    tri_vidx: torch.Tensor   # (T, 3) int32
+    tri_nidx: torch.Tensor   # (T, 3) int32
+    tri_tidx: torch.Tensor   # (T, 3) int32, -1 when absent
 
 
 @dataclasses.dataclass

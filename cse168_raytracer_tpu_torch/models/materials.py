@@ -36,6 +36,10 @@ TEX_FLOWER_CENTER = 7
 TEX_IMAGE = 8
 TEX_CELLULAR = 9
 
+# the kinds looked up by world position (GetLookupCoordinates() == UVW;
+# JAX models/materials.py:53 UVW_KINDS)
+UVW_KINDS = (TEX_CLOUD, TEX_PETAL, TEX_LEAF, TEX_FLOWER_CENTER)
+
 N_TEX_PARAMS = 12
 
 

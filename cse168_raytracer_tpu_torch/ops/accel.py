@@ -43,11 +43,10 @@ from cse168_raytracer_tpu_torch.models.geometry import (TrianglePack,
                                                         pack_host_arrays)
 from cse168_raytracer_tpu_torch.ops import (binary_bvh, bvh, forest, packet,
                                             tri_blocks, wide_bvh)
-from cse168_raytracer_tpu_torch.ops.intersect import (PRIM_TRI, _BIG, _hit,
-                                                      _merge,
-                                                      intersect_blpatches,
-                                                      intersect_planes,
-                                                      intersect_spheres)
+from cse168_raytracer_tpu_torch.ops.intersect import (PRIM_TRI, _BIG, Hit,
+                                                      _hit,
+                                                      _occluded_by_pools,
+                                                      _then_pools)
 from cse168_raytracer_tpu_torch.ops.pluecker import triangle_t
 
 MAX_W4_TRIS = 300_000
@@ -394,12 +393,20 @@ def scene_closest_hit(accel, spheres, planes, o, d, tmin=0.0,
     counted)."""
     t, ids, attr, *tests = _triangles_closest(accel, o, d, tmin, tmax,
                                               with_stats)
-    h = _hit(t, ids, PRIM_TRI)
-    h = _merge(h, intersect_spheres(spheres, o, d, tmin, tmax))
-    h = _merge(h, intersect_planes(planes, o, d, tmin, tmax))
-    if blpatches is not None:
-        h = _merge(h, intersect_blpatches(blpatches, o, d, tmin, tmax))
+    h = _then_pools(_hit(t, ids, PRIM_TRI), spheres, planes, o, d, tmin,
+                    tmax, blpatches)
     return (h, attr, *tests)
+
+
+def accel_closest_hit(accel: BlockAccel, tris: TrianglePack, spheres,
+                      planes, o, d, tmin=0.0, tmax=MIRO_TMAX,
+                      blpatches=None) -> Hit:
+    """Scene::trace with the block accelerator (JAX ops/accel.py:629
+    accel_closest_hit): its culled triangle pass, then spheres, planes
+    and the bilinear patches. `tris` is the pack `accel` was built from
+    (the accelerator holds its rows)."""
+    return scene_closest_hit(accel, spheres, planes, o, d, tmin, tmax,
+                             blpatches=blpatches)[0]
 
 
 def scene_any_hit(accel, spheres, planes, o, d, tmin=0.0, tmax=MIRO_TMAX,
@@ -409,9 +416,6 @@ def scene_any_hit(accel, spheres, planes, o, d, tmin=0.0, tmax=MIRO_TMAX,
     ops/pallas_bvh.py:601-610); with_stats (occluded, box tests,
     triangle tests) as scene_closest_hit counts them."""
     occ, *tests = _triangles_occluded(accel, o, d, tmin, tmax, with_stats)
-    occ = occ | intersect_spheres(spheres, o, d, tmin, tmax).hit
-    occ = occ | intersect_planes(planes, o, d, tmin, tmax).hit
-    if blpatches is not None:
-        with torch.no_grad():
-            occ = occ | intersect_blpatches(blpatches, o, d, tmin, tmax).hit
+    occ = _occluded_by_pools(occ, spheres, planes, o, d, tmin, tmax,
+                             blpatches)
     return (occ, *tests) if with_stats else occ

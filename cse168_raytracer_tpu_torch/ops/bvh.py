@@ -26,11 +26,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cse168_raytracer_tpu_torch.config import EPSILON
+from cse168_raytracer_tpu_torch.config import EPSILON, MIRO_TMAX
 from cse168_raytracer_tpu_torch.core.vecmath import cross, dot
 from cse168_raytracer_tpu_torch.models.geometry import (TrianglePack,
                                                         pack_host_arrays)
-from cse168_raytracer_tpu_torch.ops.intersect import _BIG, _DEN_TINY
+from cse168_raytracer_tpu_torch.ops.intersect import (PRIM_TRI, _BIG,
+                                                      _DEN_TINY, Hit, _hit,
+                                                      _occluded_by_pools,
+                                                      _then_pools)
 
 _FAR = 1.0e30  # degenerate AABB placed at infinity: slab always fails
 
@@ -250,3 +253,24 @@ def bvh_closest_hit_triangles(accel: BVHAccel, o, d, tmin, tmax,
     if collect_stats:
         return out + (TraversalStats(node_visits=nv, tri_tests=tt),)
     return out
+
+
+def bvh_closest_hit(accel: BVHAccel, tris, spheres, planes, o, d,
+                    tmin=0.0, tmax=MIRO_TMAX, blpatches=None) -> Hit:
+    """Scene::trace through the hierarchical accelerator's walk, then
+    spheres, planes and the bilinear patches (JAX ops/bvh.py:342
+    bvh_closest_hit). `tris` is the pack `accel` was built from."""
+    t, ids = bvh_closest_hit_triangles(accel, o, d, tmin, tmax)
+    return _then_pools(_hit(t, ids, PRIM_TRI), spheres, planes, o, d, tmin,
+                       tmax, blpatches)
+
+
+def bvh_any_hit(accel: BVHAccel, tris, spheres, planes, o, d,
+                tmin=0.0, tmax=MIRO_TMAX, blpatches=None) -> torch.Tensor:
+    """(N,) bool shadow occlusion through the BVH walk and every other
+    pool, with no gradient (JAX ops/bvh.py:358 bvh_any_hit)."""
+    with torch.no_grad():
+        t = bvh_closest_hit_triangles(accel, o, d, tmin, tmax,
+                                      any_hit=True)[0]
+        return _occluded_by_pools(t < _BIG, spheres, planes, o, d, tmin,
+                                  tmax, blpatches)

@@ -104,6 +104,15 @@ def intersect_triangles(pack: TrianglePack, o, d, tmin, tmax,
 
 
 @torch.no_grad()
+def detach_tri_hit(impl, pack, o, d, tmin, tmax, *extra):
+    """Run a triangle closest-hit `impl` with no gradient (JAX
+    ops/intersect.py:146 detach_tri_hit, its stop_gradient): a hit is a
+    discrete choice, and ops/surface.py recomputes the winner's surface
+    differentiably, so the traversal never enters autograd."""
+    with torch.no_grad():
+        return impl(pack, o.detach(), d.detach(), tmin, tmax, *extra)
+
+
 def intersect_spheres(pool: SpherePool, o, d, tmin, tmax) -> Hit:
     """Quadratic-formula sphere intersection (Sphere.cpp:27-69)."""
     tmin, tmax = _bounds(tmin, tmax, o)
@@ -235,6 +244,29 @@ def _merge(a: Hit, b: Hit) -> Hit:
                prim_type=torch.where(b_better, b.prim_type, a.prim_type),
                prim_id=torch.where(b_better, b.prim_id, a.prim_id),
                hit=a.hit | b.hit)
+
+
+def _then_pools(h: Hit, spheres, planes, o, d, tmin, tmax,
+                blpatches=None) -> Hit:
+    """The triangle hit h merged with the spheres, the plane list and
+    the bilinear patches, in that order (Scene.cpp:214-231)."""
+    h = _merge(h, intersect_spheres(spheres, o, d, tmin, tmax))
+    h = _merge(h, intersect_planes(planes, o, d, tmin, tmax))
+    if blpatches is not None:
+        h = _merge(h, intersect_blpatches(blpatches, o, d, tmin, tmax))
+    return h
+
+
+def _occluded_by_pools(occ, spheres, planes, o, d, tmin, tmax,
+                       blpatches=None):
+    """The triangles' occlusion occ or any sphere, plane or bilinear
+    patch hit (the patches without a gradient)."""
+    occ = occ | intersect_spheres(spheres, o, d, tmin, tmax).hit
+    occ = occ | intersect_planes(planes, o, d, tmin, tmax).hit
+    if blpatches is not None:
+        with torch.no_grad():
+            occ = occ | intersect_blpatches(blpatches, o, d, tmin, tmax).hit
+    return occ
 
 
 def closest_hit(tris: TrianglePack, spheres: SpherePool, planes: PlanePool,

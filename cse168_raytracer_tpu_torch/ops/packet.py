@@ -20,12 +20,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from cse168_raytracer_tpu_torch.config import MIRO_TMAX
 from cse168_raytracer_tpu_torch.core.vecmath import cross
 from cse168_raytracer_tpu_torch.models.geometry import TrianglePack
 from cse168_raytracer_tpu_torch.ops.bvh import (TraversalStats, _build_cbox,
                                                 _expand, _leaf_boxes,
                                                 _slab_enter)
-from cse168_raytracer_tpu_torch.ops.intersect import _BIG
+from cse168_raytracer_tpu_torch.ops.intersect import (PRIM_TRI, _BIG, Hit,
+                                                      _hit,
+                                                      _occluded_by_pools,
+                                                      _then_pools)
 from cse168_raytracer_tpu_torch.ops.pluecker import triangle_t
 
 
@@ -165,3 +169,24 @@ def packet_closest_hit_triangles(accel: PacketAccel, o, d, tmin, tmax,
     if collect_stats:
         return out + (TraversalStats(node_visits=nv, tri_tests=tt),)
     return out
+
+
+def packet_closest_hit(accel: PacketAccel, tris, spheres, planes, o, d,
+                       tmin=0.0, tmax=MIRO_TMAX, blpatches=None) -> Hit:
+    """Scene::trace through the packet accelerator's tile walk, then
+    spheres, planes and the bilinear patches (JAX ops/packet.py:276
+    packet_closest_hit). `tris` is the pack `accel` was built from."""
+    t, ids = packet_closest_hit_triangles(accel, o, d, tmin, tmax)
+    return _then_pools(_hit(t, ids, PRIM_TRI), spheres, planes, o, d, tmin,
+                       tmax, blpatches)
+
+
+def packet_any_hit(accel: PacketAccel, tris, spheres, planes, o, d,
+                   tmin=0.0, tmax=MIRO_TMAX, blpatches=None) -> torch.Tensor:
+    """(N,) bool shadow occlusion through the packet walk and every other
+    pool, with no gradient (JAX ops/packet.py:291 packet_any_hit)."""
+    with torch.no_grad():
+        t = packet_closest_hit_triangles(accel, o, d, tmin, tmax,
+                                         any_hit=True)[0]
+        return _occluded_by_pools(t < _BIG, spheres, planes, o, d, tmin,
+                                  tmax, blpatches)

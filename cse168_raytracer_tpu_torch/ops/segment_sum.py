@@ -4,9 +4,10 @@ scatters of the port.
 `segment_sum(values (N, C), ids (N,), n_rows)` returns (n_rows, C), row
 r the sum of the values of the lanes i with ids[i] == r, added in this
 order, the same on the card and on the CPU:
-- the lanes are sorted by id with torch.sort(stable=True); a stable
-  sort's permutation is unique, so it is the same on every device, and
-  within a row's run a term's rank is its place in lane order;
+- the lanes are sorted by id, stably (torch.sort(stable=True) here, a
+  radix sort of its own in the kernel); a stable sort's permutation is
+  unique, so it is the same on every device, and within a row's run a
+  term's rank is its place in lane order;
 - round s, h = 2^s: the term at rank k with k % 2h == 0 adds the term at
   rank k + h, if k + h < the run's length L (the left term first);
 - after ceil(log2 L) rounds rank 0 holds the row's sum;
@@ -17,13 +18,17 @@ index_add_ add in the device's order instead: partial segment sums on
 the card, lane order on the CPU, and on the card index_add_ adds by
 float atomics, in any order, flushing subnormal sums to zero.
 
-On CUDA tensors it runs the hand-written kernel csrc/segment_sum.cu (a
-kernel of the port alone; no Pallas kernel of the JAX package does
-this): one warp a 1,024-rank tile of every run doing rounds 0-9, and one
-warp a row over its tiles' partials for rounds 10 and up, two launches
-after the sort. On CPU tensors it runs `segment_sum_plain`, the same
-rounds as PyTorch ops. For a CUDA tensor it launches the kernel or
-raises; nothing gives way to the plain version.
+On CUDA tensors it runs the hand-written kernels of csrc/segment_sum.cu
+(a kernel of the port alone; no Pallas kernel of the JAX package does
+this) in one call: with n_rows > 1 a stable LSD radix sort of the ids
+over their ceil(log2 n_rows) bits, an integer count of each row's terms
+and a scan of the counts into the runs; a zero-fill of the rows; then
+the sums over the runs only, short runs many to a warp (a lane streaming
+a run and column through the same additions), longer runs in 1,024-rank
+tiles and a pass over their partials. With one row there is no sort.
+On CPU tensors it runs `segment_sum_plain`, the same rounds as PyTorch
+ops. For a CUDA tensor it launches the kernel or raises; nothing gives
+way to the plain version.
 """
 
 from __future__ import annotations
@@ -34,11 +39,13 @@ import torch
 
 from cse168_raytracer_tpu_torch.ops import cuda_build
 
-TILE = 1024
+# what a call of the kernel runs (segment_sum_launch's `parts`): the sort
+# and the scan into runs, the sums, the zero-fill of the rows
+SORT, SUMS, ZERO = 1, 2, 4
 
-# kernel launches (the pair of a segment_sum call), counted where the
-# wrapper launches them
-LAUNCHES = {"segment_sum": 0}
+# calls of the kernel, counted where the wrapper launches them: every
+# segment_sum on the card, and those of them that sort (n_rows > 1)
+LAUNCHES = {"segment_sum": 0, "segment_sort": 0}
 
 
 def _runs(ids: torch.Tensor, n_rows: int):
@@ -85,32 +92,71 @@ def _kernel_lib():
 
 def _bind(lib):
     """Declare the C interface of a build of segment_sum.cu."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.segment_sum_launch.argtypes = [p, i, p, p, i, ctypes.c_longlong, p,
-                                       p, p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.segment_sum_scratch_bytes.argtypes = [ll, i, i]
+    lib.segment_sum_scratch_bytes.restype = ll
+    lib.segment_sum_launch.argtypes = [p, i, p, ll, i, p, p, p, i, p]
     lib.segment_sum_launch.restype = i
     return lib
 
 
-def _launch(values: torch.Tensor, ids: torch.Tensor,
-            n_rows: int) -> torch.Tensor:
-    """The sort, then the kernel's two launches."""
-    n, cols = values.shape
-    dev = values.device
-    perm, row_start = _runs(ids, n_rows)
-    # tile t of row r has the slot r + row_start[r] // 1024 + t
-    slots = n_rows + n // TILE
-    partial = torch.empty((slots, cols), dtype=values.dtype, device=dev)
-    out = torch.empty((n_rows, cols), dtype=values.dtype, device=dev)
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+def scratch_for(n: int, cols: int, n_rows: int, device) -> torch.Tensor:
+    """The kernel's scratch for a call of n terms and cols columns on
+    n_rows rows."""
+    nbytes = _kernel_lib().segment_sum_scratch_bytes(n, cols, n_rows)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def run_parts(values, ids: torch.Tensor, n_rows: int, perm: torch.Tensor,
+              scratch: torch.Tensor, out: torch.Tensor, parts: int) -> None:
+    """One call of the kernel: `parts` of SORT | SUMS | ZERO on the given
+    buffers (values may be None for SORT alone). Raises on a launch
+    error."""
+    n, cols = ids.shape[0], out.shape[1]
+    ptr = lambda x: ctypes.c_void_p(0 if x is None else x.data_ptr())
     rc = _kernel_lib().segment_sum_launch(
-        ptr(values), cols, ptr(perm), ptr(row_start), n_rows, slots,
-        ptr(partial), ptr(out),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        ptr(values), cols, ptr(ids), n, n_rows, ptr(perm), ptr(scratch),
+        ptr(out), parts,
+        ctypes.c_void_p(torch.cuda.current_stream(ids.device).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {rc}")
+
+
+def _launch(values: torch.Tensor, ids: torch.Tensor,
+            n_rows: int) -> torch.Tensor:
+    """One call of the kernel, sort (n_rows > 1), zero-fill and sums."""
+    n, cols = values.shape
+    dev = values.device
+    perm = torch.empty(n if n_rows > 1 else 0, dtype=torch.int32,
+                       device=dev)
+    out = torch.empty((n_rows, cols), dtype=values.dtype, device=dev)
+    run_parts(values, ids, n_rows, perm, scratch_for(n, cols, n_rows, dev),
+              out, SORT | SUMS | ZERO)
     LAUNCHES["segment_sum"] += 1
+    if n_rows > 1:
+        LAUNCHES["segment_sort"] += 1
     return out
+
+
+def _sort_launch(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The kernel's sort alone (n_rows > 1): the permutation, int32."""
+    perm = torch.empty(ids.shape[0], dtype=torch.int32, device=ids.device)
+    out = torch.empty((n_rows, 1), device=ids.device)
+    run_parts(None, ids, n_rows, perm,
+              scratch_for(ids.shape[0], 1, n_rows, ids.device), out, SORT)
+    LAUNCHES["segment_sort"] += 1
+    return perm
+
+
+def stable_order(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """(N,) int32: the lanes sorted by id, stably (ids in [0, n_rows)).
+    On the card the kernel's own radix sort over the ids' ceil(log2
+    n_rows) bits alone (n_rows > 1), no sums; on the CPU torch.sort."""
+    if ids.device.type == "cpu":
+        return torch.sort(ids, stable=True)[1].to(torch.int32)
+    if n_rows < 2 or ids.numel() == 0:
+        raise ValueError("stable_order: need n_rows > 1 and some ids")
+    return _sort_launch(ids.long().contiguous(), n_rows)
 
 
 def segment_sum(values: torch.Tensor, ids: torch.Tensor,

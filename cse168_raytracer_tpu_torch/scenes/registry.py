@@ -47,6 +47,8 @@ from cse168_raytracer_tpu_torch.render.camera import make_camera
 REF_MODELS = "/root/reference/models"
 REF_GFX = "/root/reference/gfx"
 
+INF = float("inf")   # JAX scenes/registry.py:42 INF
+
 # CloudTexture parameter rows (scale, cloudSize, density, sharpness,
 # ambient, shadowThreshold, shadowMagnitude, shadowSharpness)
 CLOUD_PARAMS_A3 = (3.0, 0.1, 0.2, 50.0, 0.4, 0.35, 0.5, 0.3)  # main.cpp:33-41

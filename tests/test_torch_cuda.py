@@ -566,7 +566,8 @@ def test_segment_sum_kernel_equals_plain_on_card(cuda):
     """csrc/segment_sum.cu against segment_sum_plain by torch.equal, and
     against itself over two runs: runs of 1 to 3,000 terms, empty rows,
     -0.0 and subnormal terms, 1, 3 and 29 columns, and a run of 2^21
-    terms (the rows pass's second level)."""
+    terms (more than 1,024 tiles: the partials' second level); with one
+    row the call runs no sort."""
     from cse168_raytracer_tpu_torch.ops import segment_sum as ss
     rng = np.random.default_rng(3)
     ids = np.concatenate([np.zeros(3000, np.int64), np.full(1025, 1),
@@ -584,11 +585,32 @@ def test_segment_sum_kernel_equals_plain_on_card(cuda):
     for v, i, n_rows in cases:
         tv, ti = torch.as_tensor(v), torch.as_tensor(i)
         want = ss.segment_sum_plain(tv, ti, n_rows)
-        before = ss.LAUNCHES["segment_sum"]
+        before = dict(ss.LAUNCHES)
         a = ss.segment_sum(tv.to(cuda), ti.to(cuda), n_rows)
         b = ss.segment_sum(tv.to(cuda), ti.to(cuda), n_rows)
-        assert ss.LAUNCHES["segment_sum"] == before + 2
+        assert ss.LAUNCHES["segment_sum"] == before["segment_sum"] + 2
+        # one row: no sort
+        assert ss.LAUNCHES["segment_sort"] == before["segment_sort"] + (
+            2 if n_rows > 1 else 0)
         assert torch.equal(a.cpu(), want) and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_rows", [2, 256, 257, 2000, 270_336,
+                                    (1 << 19) + 1])
+def test_segment_sum_sort_is_torch_sort_on_card(cuda, n_rows):
+    """The kernel's radix sort over ceil(log2 n_rows) bits gives
+    torch.sort(stable=True)'s permutation (1, 8, 9, 11, 19 and 20 bits),
+    on random ids, on descending ones and with every id the last row."""
+    from cse168_raytracer_tpu_torch.ops import segment_sum as ss
+    rng = np.random.default_rng(n_rows)
+    n = 300_000
+    for ids in (rng.integers(0, n_rows, n),
+                np.sort(rng.integers(0, n_rows, n))[::-1].copy(),
+                np.full(n, n_rows - 1)):
+        ti = torch.as_tensor(ids).to(cuda)
+        got = ss.stable_order(ti, n_rows)
+        assert got.dtype == torch.int32
+        assert torch.equal(got.long(), torch.sort(ti, stable=True)[1])
 
 
 @pytest.mark.parametrize("name", ["sphere", "mixed"])

@@ -16,7 +16,11 @@
   elsewhere.
 - The card kernel csrc/segment_sum.cu, built for the host through
   test_torch_traverse.py's emulation of CUDA, equals segment_sum_plain
-  exactly and itself across two runs.
+  exactly and itself across two runs (one row, with no sort; 1-19 key
+  bits; runs of 1-70 terms at every offset from 32- and 1,024-lane
+  edges; descending ids; every term in the last row; -0.0 beside an
+  empty row; 29 sparse columns), and its radix sort gives
+  torch.sort(stable=True)'s permutation.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_determinism.py -q
 """
@@ -390,24 +394,115 @@ def big_run_case(rng, cols):
     return wild(rng, (n, cols)), ids, 3
 
 
-@pytest.mark.parametrize("case", ["runs, 1 column", "runs, 3 columns",
-                                  "runs, 29 columns", "a run of 2^20",
-                                  "2,000 rows, most empty"])
-def test_card_kernel_equals_plain(emulated, case):
+def edge_runs_case(rng, window, offsets):
+    """Runs of every length 1-70, each starting `offset` sorted positions
+    past a multiple of `window` for every offset of offsets(length):
+    filler rows of one term before each run set its start. Rows in run
+    order, the lanes shuffled."""
+    lens, pos = [], 0
+    for length in range(1, 71):
+        for off in offsets(length):
+            pad = (off - pos) % window
+            lens += [1] * pad + [length]
+            pos += pad + length
+    ids = np.repeat(np.arange(len(lens)), lens)
+    rng.shuffle(ids)
+    return wild(rng, (ids.size, 3)), ids, len(lens)
+
+
+def sparse_29_case(rng):
+    """ReattachRows' shape, cut down: 29 columns, 5,000 terms on 40,000
+    rows, most rows empty; runs of one to 1,500 terms (the longest in two
+    tiles), a lone -0.0 row and an empty row beside it."""
+    lens = np.concatenate([[1500, 700, 65, 64, 33], rng.integers(1, 30,
+                                                                 150)])
+    rows = rng.choice(np.arange(2, 40_000), lens.size, replace=False)
+    ids = np.concatenate([np.repeat(rows, lens), [0]])
+    values = wild(rng, (ids.size, 29))
+    values[-1] = -0.0          # row 0: one -0.0 term; row 1: empty
+    order = rng.permutation(ids.size)
+    return values[order], ids[order], 40_000
+
+
+def key_bits_case(rng, bits):
+    """2,000 terms on n_rows rows, ceil(log2 n_rows) == bits: random ids,
+    the first and last rows among them."""
+    n_rows = {1: 2, 8: 256, 9: 257, 11: 2000, 17: 100_000,
+              19: 270_336}[bits]
+    ids = rng.integers(0, n_rows, 2000)
+    ids[:3] = [0, n_rows - 1, n_rows - 1]
+    return wild(rng, (ids.size, 2)), ids, n_rows
+
+
+SEGSUM_CASES = ["runs, 1 column", "runs, 3 columns", "runs, 29 columns",
+                "a run of 2^20", "2,000 rows, most empty", "one row",
+                "1 key bit", "8 key bits", "9 key bits", "11 key bits",
+                "17 key bits", "19 key bits", "runs 1-70 at 32-lane edges",
+                "runs 1-70 at 1,024-lane edges", "descending ids",
+                "every term in the last row", "-0.0 beside an empty row",
+                "29 columns, sparse"]
+
+
+def segsum_case(case):
     rng = np.random.default_rng(len(case))
     if case == "a run of 2^20":
-        values, ids, n_rows = big_run_case(rng, 1)
-    elif case.startswith("2,000"):
-        # the warp's row search takes several rounds; most slots are holes
+        return big_run_case(rng, 1)
+    if case.startswith("2,000"):
+        # most rows empty; the last row holds a run
         ids = np.sort(rng.integers(0, 2000, 1500))
         ids[:40] = 1999
-        values, n_rows = wild(rng, (ids.size, 5)), 2000
-    else:
-        values, ids, n_rows = segment_case(rng, int(case.split()[1]))
+        return wild(rng, (ids.size, 5)), ids, 2000
+    if case == "one row":
+        return wild(rng, (5000, 3)), np.zeros(5000, np.int64), 1
+    if case.endswith("key bits") or case == "1 key bit":
+        return key_bits_case(rng, int(case.split()[0]))
+    if case == "runs 1-70 at 32-lane edges":
+        return edge_runs_case(rng, 32, lambda length: range(32))
+    if case == "runs 1-70 at 1,024-lane edges":
+        return edge_runs_case(rng, 1024, lambda length: sorted(
+            {(-j) % 1024 for j in (0, length // 2, length)}))
+    if case == "descending ids":
+        ids = np.sort(rng.integers(0, 3000, 6000))[::-1].copy()
+        return wild(rng, (ids.size, 3)), ids, 3000
+    if case == "every term in the last row":
+        return wild(rng, (3000, 3)), np.full(3000, 299), 300
+    if case == "-0.0 beside an empty row":
+        ids = np.array([0, 2, 2, 5, 5, 5])
+        values = wild(rng, (6, 4))
+        values[0] = -0.0
+        return values, ids, 7
+    if case == "29 columns, sparse":
+        return sparse_29_case(rng)
+    return segment_case(rng, int(case.split()[1]))
+
+
+@pytest.mark.parametrize("case", SEGSUM_CASES)
+def test_card_kernel_equals_plain(emulated, case):
+    values, ids, n_rows = segsum_case(case)
     v, i = torch.as_tensor(values), torch.as_tensor(ids)
     want = ss.segment_sum_plain(v, i, n_rows)
     first = ss._launch(v, i, n_rows)
     again = ss._launch(v, i, n_rows)
     assert emulated["segment_sum"] == 2
+    # the sort runs only with more than one row
+    assert emulated["segment_sort"] == (2 if n_rows > 1 else 0)
     assert torch.equal(first, want) and torch.equal(again, first)
     assert bits(first.numpy()).tobytes() == bits(want.numpy()).tobytes()
+    if case == "-0.0 beside an empty row":
+        assert (bits(first[0].numpy()) == bits(np.float32(-0.0))).all()
+        assert (bits(first[[1, 6]].numpy()) == 0).all()
+
+
+@pytest.mark.parametrize("case", ["8 key bits", "19 key bits",
+                                  "descending ids",
+                                  "every term in the last row",
+                                  "runs 1-70 at 32-lane edges"])
+def test_card_sort_is_torch_sort(emulated, case):
+    """The kernel's own radix sort (stable_order on the emulated card
+    build) gives torch.sort(stable=True)'s permutation."""
+    _, ids, n_rows = segsum_case(case)
+    i = torch.as_tensor(ids)
+    perm = ss._sort_launch(i, n_rows)
+    assert perm.dtype == torch.int32
+    assert torch.equal(perm.long(), torch.sort(i, stable=True)[1])
+    assert emulated["segment_sort"] == 1 and emulated["segment_sum"] == 0

@@ -318,14 +318,30 @@ CUDA_EMULATION_H = r"""
 #define __restrict__ __restrict
 struct alignas(16) float4 { float x, y, z, w; };
 struct emu_dim3 { unsigned x, y, z; };
-inline thread_local emu_dim3 threadIdx, blockIdx, blockDim;
+inline thread_local emu_dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local void* emu_smem;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 typedef void* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+// two multiprocessors: grids sized by the card stay small here
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return cudaSuccess;
+}
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F,
+                                                                 int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, void*) {
+  memset(p, v, n);
+  return cudaSuccess;
+}
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
@@ -353,6 +369,18 @@ inline unsigned __float_as_uint(float f) {
 inline float __uint_as_float(unsigned i) { float f; memcpy(&f, &i, 4); return f; }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+template <class T> inline T __ldcg(const T* p) {
+  T r;
+  __atomic_load(p, &r, __ATOMIC_SEQ_CST);
+  return r;
+}
+template <class T> inline void __stcg(T* p, T v) {
+  __atomic_store(p, &v, __ATOMIC_SEQ_CST);
 }
 inline unsigned long long atomicMin(unsigned long long* p,
                                     unsigned long long v) {
@@ -410,6 +438,10 @@ template <class T> inline T __shfl_sync(unsigned m, T v, int src) {
 template <class T> inline T __shfl_down_sync(unsigned m, T v, unsigned d) {
   const int lane = threadIdx.x & 31;
   return __shfl_sync(m, v, lane + (int)d < 32 ? lane + (int)d : lane);
+}
+template <class T> inline T __shfl_up_sync(unsigned m, T v, unsigned d) {
+  const int lane = threadIdx.x & 31;
+  return __shfl_sync(m, v, lane - (int)d >= 0 ? lane - (int)d : lane);
 }
 inline void __syncwarp(unsigned m = 0xffffffffu) {
   if (m != 0xffffffffu) {
@@ -491,6 +523,7 @@ inline void emu_launch(int blocks, int threads, long smem, void*,
         threadIdx = {unsigned(x), 0, 0};
         blockIdx = {unsigned(b), 0, 0};
         blockDim = {unsigned(threads), 1, 1};
+        gridDim = {unsigned(blocks), 1, 1};
         emu_smem = shared.data();
         emu_warp = warps[x / 32].get();
         emu_block = &block;
