@@ -486,9 +486,8 @@ def phase_build():
     ptxas = {}
     for src in cuda_build.SOURCES:
         info = cuda_build.BUILD_INFO[src]
-        log(f"[2 build] {src}: " + (f"nvcc {info['seconds']:.2f} s"
-                                    if info["seconds"] is not None else
-                                    f"already built, {info['path']}"))
+        log(f"[2 build] {src}: " + ("built by nvcc" if info["built"]
+                                    else f"already built, {info['path']}"))
         for name, k in ptxas_kernels(info["log"]).items():
             ptxas[name] = k
             log(f"   ptxas: {name}: {k['registers']} registers, "
@@ -717,10 +716,8 @@ def phase_main_path(device):
 
     n_iter = 5
     out = {"scene": scene, "static": static, "cam": cam, "build_s": build_s}
-    for k in wide_bvh.LAUNCHES:
-        wide_bvh.LAUNCHES[k] = 0
-    for k in segment_sum.LAUNCHES:
-        segment_sum.LAUNCHES[k] = 0
+    zero_launches(wide_bvh)
+    zero_launches(segment_sum)
     for label, s in (("registered", scene), ("lit", lit_sponza(scene))):
         torch.cuda.reset_peak_memory_stats(device)
         hdr, grad, stats, ms, host_ms = timed_steps(s, static, cam, cfg,
@@ -749,7 +746,9 @@ def phase_main_path(device):
             f"|grad| sum {float(grad.abs().sum()):.6g}")
         out[label] = {"ms": ms, "host_ms": host_ms, "rays": rays,
                       "peak_mib": peak / 2**20}
-    out["launches"] = dict(wide_bvh.LAUNCHES, **segment_sum.LAUNCHES)
+    sums = launch_counts(segment_sum)
+    out["launches"] = dict(launch_counts(wide_bvh), segment_sum=sums["sums"],
+                           segment_sort=sums["sort"])
     log(f"[4 main path] kernel launches over both runs: {out['launches']}")
     for k in ("closest", "any", "segment_sum"):
         if out["launches"][k] < 1:
@@ -836,21 +835,21 @@ def phase_children_on_card(device):
     from cse168_raytracer_tpu_torch.render.integrator import render_hdr
     scene, static, cam = mixed_scene(device)
     scene = attach_accel(scene)
-    saved = dict(wb.LAUNCHES)
+    saved = launch_counts(wb)
     st = {}
     with torch.no_grad():
         for depth in (0, DEPTH):
             cfg = RenderConfig(width=RES // 4, height=RES // 4,
                                trace_depth=depth, path_tracing=True,
                                trace_samples=1, collect_stats=True)
-            wb.LAUNCHES["stats_closest"] = 0
+            set_launches(wb, {"stats_closest": 0})
             hdr, stats = render_hdr(scene, static, cam, cfg)
             torch.cuda.synchronize()
             if not bool(torch.isfinite(hdr).all()):
                 raise AssertionError("path-traced render: non-finite image")
             st[depth] = (int(stats.secondary_rays), int(stats.box_tests),
-                         int(stats.tri_tests), wb.LAUNCHES["stats_closest"])
-    wb.LAUNCHES.update(saved)
+                         int(stats.tri_tests), launch_counts(wb)["stats_closest"])
+    set_launches(wb, saved)
     (_, box0, tri0, n0), (sec, box, tri, n) = st[0], st[DEPTH]
     log(f"[5 children] mixed {RES // 4}x{RES // 4} path-traced on the "
         f"card's generator: {sec} secondary rays; their traversals "
@@ -872,7 +871,7 @@ def phase_plain_timing(device, main, errs):
     from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
     scene, cam = main["scene"], main["cam"]
     bvh = scene.accel
-    saved = dict(wb.LAUNCHES)
+    saved = launch_counts(wb)
     o, d = primary_rays(cam, RES, RES, device)
     so, sd, stmax = shadow_rays(scene, o, d)
     lo, ld, ltmax = shadow_rays(lit_sponza(scene), o, d)
@@ -931,7 +930,7 @@ def phase_plain_timing(device, main, errs):
         "rays": 2 * RES * RES, "plain_rays": 2 * RES * RES, **bound(total)}
     log(f"[6 bound] counting, both modes: {bound_line(total)}; kernels "
         f"{out['stats']['ms']:.3f} ms")
-    wb.LAUNCHES.update(saved)
+    set_launches(wb, saved)
     return out
 
 
@@ -973,11 +972,11 @@ def phase_k3(cases, errs):
     trees, in both modes: equal visit counts, and t, id and attributes
     as walk_plain and the kernel without counters give them."""
     from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
-    saved = dict(wb.LAUNCHES)
+    saved = launch_counts(wb)
     log("[7 K3]")
     for label, bvh, args in cases:
         compare_plain(label, bvh, args, errs)
-    wb.LAUNCHES.update(saved)
+    set_launches(wb, saved)
 
 
 def phase_cli(device, card):
@@ -994,8 +993,7 @@ def phase_cli(device, card):
     lit = (lit_sponza(scene), static, cam)
     del scene
     runs = {}
-    for k in wb.LAUNCHES:
-        wb.LAUNCHES[k] = 0
+    zero_launches(wb)
     with tempfile.TemporaryDirectory() as tmp:
         for name, built in (("sponza_proxy", None), ("sponza_proxy lit", lit)):
             for label, extra in (("a", []), ("b", [
@@ -1032,22 +1030,33 @@ def phase_cli(device, card):
                     f"{r['rays_s']:.1f} rays/s, {r['box_per_ray']:.3f} box "
                     f"and {r['tri_per_ray']:.3f} triangle tests per ray; "
                     f"image mean {float(hdr.mean()):.6g}; card {card}")
-    launches = dict(wb.LAUNCHES)
-    log(f"[8 cli] kernel launches over the four renders: {launches}")
+    counted = launch_counts(wb)
+    log(f"[8 cli] kernel launches over the four renders: {counted}")
     for k in ("stats_closest", "stats_any"):
-        if launches[k] < 1:
+        if counted[k] < 1:
             raise AssertionError(f"the command line launched no {k} kernel")
-    return runs, launches
+    return runs, counted
 
 
 # ---------------------------------------------------------------------------
 # phase 9: the A/B accelerator kinds
 # ---------------------------------------------------------------------------
 
+def launch_counts(mod) -> dict:
+    """A kernel module's launches by mode: the tracer's counters
+    launch.<kernel>.<mode> (mod.LAUNCH names the kernel's)."""
+    from cse168_raytracer_tpu_torch.utils import profiling
+    return profiling.counts(mod.LAUNCH)
+
+
+def set_launches(mod, values: dict) -> None:
+    from cse168_raytracer_tpu_torch.utils import profiling
+    profiling.set_counts(mod.LAUNCH, values)
+
+
 def zero_launches(*mods):
     for mod in mods:
-        for k in mod.LAUNCHES:
-            mod.LAUNCHES[k] = 0
+        set_launches(mod, dict.fromkeys(launch_counts(mod), 0))
 
 
 def kinds_scene(device):
@@ -1087,25 +1096,25 @@ def phase_kind_steps(device, lit, static, cam, cfg):
         zero_launches(mod, wb)
         hdr, grad, stats, ms, host_ms = timed_steps(s, static, cam, cfg,
                                                     n_iter)
-        launches = dict(mod.LAUNCHES)
+        counted = launch_counts(mod)
         share, g_rel = pixel_agreement(hdr, ref_hdr), grad_rel(grad, ref_grad)
-        per_step = {k: v / (1 + n_iter) for k, v in launches.items()}
+        per_step = {k: v / (1 + n_iter) for k, v in counted.items()}
         log(f"[9a steps] {kind}: accel build {build_s:.3f} s; "
             f"{1 + n_iter} fwd+bwd steps at {RES}x{RES}, depth {DEPTH}, lit; "
             f"per step {ms:.3f} ms (CUDA events), {host_ms:.3f} ms (host "
             f"clock); {share * 100:.3f}% of pixels within rtol 1e-4/atol "
             f"1e-5 of auto's; kd-gradient max rel diff {g_rel:.3g}; "
-            f"launches {launches} ({per_step} per step; traverse_wide "
-            f"{dict(wb.LAUNCHES)})")
+            f"launches {counted} ({per_step} per step; traverse_wide "
+            f"{launch_counts(wb)})")
         if not (bool(hdr.isfinite().all()) and bool(grad.isfinite().all())):
             raise AssertionError(f"{kind} step: non-finite image or gradient")
         if share < 0.999 or g_rel > 1e-4:
             raise AssertionError(f"{kind} step disagrees with auto's")
-        if sum(launches.values()) < 1 or sum(wb.LAUNCHES.values()):
+        if sum(counted.values()) < 1 or sum(launch_counts(wb).values()):
             raise AssertionError(f"{kind} step did not go through its kernel")
         out[kind] = s
         out[kind + " step"] = {"ms": ms, "host_ms": host_ms,
-                               "launches": launches, "build_s": build_s}
+                               "launches": counted, "build_s": build_s}
     return out
 
 
@@ -1207,7 +1216,7 @@ def phase_kind_kernels(device, steps, cam, sponza_rays):
     from cse168_raytracer_tpu_torch.ops import tri_blocks as tb
     sah, blocks, auto = steps["pallas_sah"], steps["pallas"], steps["auto"]
     bvh = sah.accel
-    saved = (dict(bb.LAUNCHES), dict(tb.LAUNCHES))
+    saved = (launch_counts(bb), launch_counts(tb))
     o, d = primary_rays(cam, RES, RES, device)
     so, sd, stmax = shadow_rays(auto, o, d)
     rays = {"primary": (o, d, 0.0, 1e12), "lit shadow": (so, sd, 0.0, stmax)}
@@ -1300,8 +1309,8 @@ def phase_kind_kernels(device, steps, cam, sponza_rays):
         t, ids = tb.closest_hit(blocks.accel, *args)
         compare_brute(key, "pallas", blocks, auto, args, t, ids)
     kind_cases(device, sah, blocks, sponza_rays, errs)
-    bb.LAUNCHES.update(saved[0])
-    tb.LAUNCHES.update(saved[1])
+    set_launches(bb, saved[0])
+    set_launches(tb, saved[1])
     return out
 
 
@@ -1412,7 +1421,7 @@ def phase_kind_stats(sah, static, cam, cfg, device, k5):
     with torch.no_grad():
         hdr, st = render_hdr(sah, static, cam, cfg.replace(collect_stats=True))
     torch.cuda.synchronize()
-    launches = dict(bb.LAUNCHES)
+    counted = launch_counts(bb)
     n_rays = (int(st.primary_rays) + int(st.shadow_rays)
               + int(st.secondary_rays))
     o, d = primary_rays(cam, RES, RES, device)
@@ -1420,21 +1429,21 @@ def phase_kind_stats(sah, static, cam, cfg, device, k5):
     log(f"[9c stats] pallas_sah render at {RES}x{RES} with collect_stats: "
         f"{n_rays} rays, {int(st.box_tests) / n_rays:.3f} box and "
         f"{int(st.tri_tests) / n_rays:.3f} triangle tests per ray; launches "
-        f"{launches}; traversal_stats on the primary rays "
+        f"{counted}; traversal_stats on the primary rays "
         f"{float(ts.box_tests_per_ray):.3f} box and "
         f"{float(ts.tri_tests_per_ray):.3f} triangle tests per ray")
     if not bool(hdr.isfinite().all()) or int(st.box_tests) <= 0 \
             or int(st.tri_tests) <= 0:
         raise AssertionError("pallas_sah stats render: image or counters")
-    if launches["stats_closest"] < 1 or launches["stats_any"] < 1 \
-            or launches["closest"] + launches["any"]:
+    if counted["stats_closest"] < 1 or counted["stats_any"] < 1 \
+            or counted["closest"] + counted["any"]:
         raise AssertionError("the stats render did not count through K5")
     if k5["visits_primary"] is not None:
         internal, leaves = k5["visits_primary"]
         if float(ts.box_tests_per_ray) != 2 * internal / (RES * RES) or \
                 float(ts.tri_tests_per_ray) != bb.K * leaves / (RES * RES):
             raise AssertionError("traversal_stats differs from K5's counts")
-    return launches
+    return counted
 
 
 def phase_other_kinds(lit, static, cam, cfg, auto):
@@ -1462,14 +1471,14 @@ def phase_other_kinds(lit, static, cam, cfg, auto):
         sec = time.perf_counter() - t0
         share = pixel_agreement(hdr, ref)
         extra = (f"; {len(s.accel.chunks)} chunks, traverse_wide launches "
-                 f"{dict(wb.LAUNCHES)}" if kind == "pallas_forest" else "")
+                 f"{launch_counts(wb)}" if kind == "pallas_forest" else "")
         log(f"[9d kinds] {kind}: accel build {build_s:.3f} s, render "
             f"{sec:.3f} s (host clock, first run); {share * 100:.3f}% of "
             f"pixels within rtol 1e-4/atol 1e-5 of auto's" + extra)
         if share < 0.999 or not bool(hdr.isfinite().all()):
             raise AssertionError(f"{kind} render disagrees with auto's")
         if kind == "pallas_forest" and (len(s.accel.chunks) < 2 or min(
-                wb.LAUNCHES["closest"], wb.LAUNCHES["any"]) < 1):
+                launch_counts(wb)["closest"], launch_counts(wb)["any"]) < 1):
             raise AssertionError("pallas_forest did not walk its chunks "
                                  "through K1/K2")
         out[kind] = {"render_s": sec, "build_s": build_s}
@@ -1504,8 +1513,8 @@ def phase_k4(device, cam, cfg):
     zero_launches(wb)
     hdr, grad, _ = fwd_bwd(big, static, cam, cfg)
     torch.cuda.synchronize()
-    launches = dict(wb.LAUNCHES)
-    if launches["closest"] < 1 or launches["any"] < 1:
+    counted = launch_counts(wb)
+    if counted["closest"] < 1 or counted["any"] < 1:
         raise AssertionError("the W=8 step launched no K4 kernel")
     if not (bool(hdr.isfinite().all()) and bool(grad.abs().sum() > 0)):
         raise AssertionError("the W=8 step: image or gradient")
@@ -1522,7 +1531,7 @@ def phase_k4(device, cam, cfg):
     log(f"[9e K4] {big.tris.n_valid} tris, W=8, {bvh.n_nodes} nodes, "
         f"{bvh.n_leaves} leaves, accel build {build_s:.3f} s; "
         f"{stack_line(bvh)}; one fwd+bwd "
-        f"step launched {launches}; closest+attr kernel {ms:.3f} ms for {n} "
+        f"step launched {counted}; closest+attr kernel {ms:.3f} ms for {n} "
         f"primary rays, walk_plain "
         f"{plain_ms:.1f} ms; {internal / n:.3f} "
         f"internal and {leaves / n:.3f} leaf visits per ray")
@@ -1530,7 +1539,7 @@ def phase_k4(device, cam, cfg):
         f"{bound(w)['bound_ms'] / ms * 100:.2f}% of bound")
     return {"ms": ms, "rays": n,
             "plain_ms": plain_ms, "plain_rays": n,
-            **bound(w), "launches": launches["closest"] + launches["any"],
+            **bound(w), "launches": counted["closest"] + counted["any"],
             "err": errs["closest"]}
 
 
@@ -1680,7 +1689,7 @@ def phase_textured(device, card):
             res = cli_render("sponza", tmp, "a")
         finally:
             del os.environ["CSE168_SPONZA_OBJ"]
-        out["a"] = {"ms": res["steady_s"] * 1e3, "launches": dict(wb.LAUNCHES)}
+        out["a"] = {"ms": res["steady_s"] * 1e3, "launches": launch_counts(wb)}
         log(f"[10a obj] sponza from the OBJ: {out['a']['ms']:.3f} ms per "
             f"render, {res['rays']} rays; launches {out['a']['launches']}; "
             f"card {card}")
@@ -1740,7 +1749,7 @@ def phase_textured(device, card):
         f"{int(diff.max())} ({time.perf_counter() - t0:.1f} s)")
     if within2 < 0.999 or mean > 0.05:
         raise AssertionError("textured scene: card and CPU images disagree")
-    out["b"]["launches"] = dict(wb.LAUNCHES)
+    out["b"]["launches"] = launch_counts(wb)
     del scene, cs
 
     # (c) the asset-free scenes as registered
@@ -1748,12 +1757,12 @@ def phase_textured(device, card):
     out["c"] = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in ASSET_FREE:
-            before = dict(wb.LAUNCHES)
+            before = launch_counts(wb)
             res = cli_render(name, tmp, "c")
             hdr = res["hdr"]
             if not bool(hdr.max() > hdr.min()):
                 raise AssertionError(f"cli {name}: constant image")
-            k12 = {k: wb.LAUNCHES[k] - before[k] for k in ("closest", "any")}
+            k12 = {k: launch_counts(wb)[k] - before[k] for k in ("closest", "any")}
             out["c"][name] = {"ms": res["steady_s"] * 1e3, "launches": k12}
             log(f"[10c cli] {name}: {res['steady_s'] * 1e3:.3f} ms per "
                 f"render, {res['rays']} rays, K1/K2 launches {k12}; image "
@@ -1867,7 +1876,7 @@ def photon_scene(device, glass=True):
 def launches_since(wb, before):
     """The wide-tree kernel's launches (K1, K2 and K3's two modes) since
     the counts `before`."""
-    return {k: wb.LAUNCHES[k] - before[k] for k in wb.LAUNCHES}
+    return {k: launch_counts(wb)[k] - before[k] for k in launch_counts(wb)}
 
 
 def phase_photon_build(device, card, scene, static):
@@ -1877,7 +1886,7 @@ def phase_photon_build(device, card, scene, static):
     from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
     from cse168_raytracer_tpu_torch.ops.photon import build_photon_maps
     cfg = RenderConfig(**PHOTON_CFG)
-    before = dict(wb.LAUNCHES)
+    before = launch_counts(wb)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     maps, stats = build_photon_maps(scene, static, cfg, gen,
@@ -2085,7 +2094,7 @@ def phase_photon_render(device, card, scene, static, cam, maps, p, n):
     cfg = RenderConfig(width=PHOTON_RES, height=PHOTON_RES, trace_depth=10)
     lit = scene.replace(photons=maps)
     out = {}
-    before = dict(wb.LAUNCHES)
+    before = launch_counts(wb)
     torch.cuda.reset_peak_memory_stats(device)
     with torch.no_grad():
         hdr, stats = render_hdr(lit, static, cam, cfg)
@@ -2245,7 +2254,7 @@ def phase_photon_cli(card, device):
                          "--visualize-photons", ov]
             log(f"[11f cli] {label}: cli.render(parse_args({argv[2:-2]}), "
                 "built=...)")
-            before = dict(wb.LAUNCHES)
+            before = launch_counts(wb)
             err = io.StringIO()
             with contextlib.redirect_stderr(err):
                 res = cli.render(cli.parser().parse_args(argv),
@@ -2394,7 +2403,7 @@ def phase_patches(device, card):
         f"{n_patch} of {RES * RES} primary rays hit a patch")
     if n_patch == 0:
         raise AssertionError("12a: no primary ray hits a patch")
-    before = dict(wb.LAUNCHES)
+    before = launch_counts(wb)
     torch.cuda.reset_peak_memory_stats(device)
     with torch.no_grad():
         hdr, stats = render_hdr(scene, static, cam, cfg)
@@ -2456,7 +2465,7 @@ def phase_sharding(device, card):
     scene, static, cam, cfg = build("sponza_proxy", cfg, device=device)
     scene = lit_sponza(attach_accel(scene))
     out = {"render_ms": {}, "step_ms": {}, "bars": {}}
-    before = dict(wb.LAUNCHES)
+    before = launch_counts(wb)
     with torch.no_grad():
         ref = render_hdr(scene, static, cam, cfg)[0]
         out["render_ms"][0] = time_cuda(
@@ -2599,7 +2608,7 @@ def phase_progressive(device, card):
     scene, static, cam, _ = build("sponza_proxy", RenderConfig(
         width=RES, height=RES), device=device)
     built = (lit_sponza(attach_accel(scene)), static, cam)
-    before = dict(wb.LAUNCHES)
+    before = launch_counts(wb)
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "state.npz")
@@ -2655,7 +2664,7 @@ def phase_viewer(device, card):
     cfg = RenderConfig(width=RES, height=RES, trace_depth=DEPTH)
     scene, static, cam, cfg = build("sponza_proxy", cfg, device=device)
     v = InteractiveViewer(lit_sponza(attach_accel(scene)), static, cam, cfg)
-    before = dict(wb.LAUNCHES)
+    before = launch_counts(wb)
     times = {"preview": [], "raytrace": []}
     for key in ("g", "w", "d", "drag", "+", "a", "r", "s", "drag", "g"):
         if key == "drag":
@@ -2694,7 +2703,7 @@ def phase_photon_sharded(device, card, unsharded):
     from cse168_raytracer_tpu_torch.parallel.sharding import make_mesh
     scene, static, _ = photon_scene(device)
     cfg = RenderConfig(**PHOTON_CFG)
-    before = dict(wb.LAUNCHES)
+    before = launch_counts(wb)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     maps, stats = build_photon_maps(scene, static, cfg, gen,
@@ -3460,10 +3469,10 @@ def phase_segment_sum(device, card, main_run, photon_level):
     for label, (v, ids, n_rows) in shapes.items():
         v, ids = v.contiguous(), ids.long().contiguous()
         want = ss.segment_sum_plain(v, ids, n_rows)
-        sorts = ss.LAUNCHES["segment_sort"]
+        sorts = launch_counts(ss)["sort"]
         a = ss.segment_sum(v, ids, n_rows)
         b = ss.segment_sum(v, ids, n_rows)
-        sorted_ = ss.LAUNCHES["segment_sort"] - sorts
+        sorted_ = launch_counts(ss)["sort"] - sorts
         torch.cuda.synchronize()
         same, again = torch.equal(a, want), torch.equal(a, b)
         order = (torch.equal(ss.stable_order(ids, n_rows).long(),

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from cse168_raytracer_tpu_torch.ops.segment_sum import segment_sum
+from cse168_raytracer_tpu_torch.utils import profiling
 
 
 def select_component(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -42,6 +43,7 @@ class _TakeRows(torch.autograd.Function):
         return F.embedding(ids, table)
 
     @staticmethod
+    @profiling.traced("backward.take_rows")
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         cols = g.shape[-1]

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from cse168_raytracer_tpu_torch.config import resolve_device
+from cse168_raytracer_tpu_torch.utils import profiling
 
 
 class Mesh(NamedTuple):
@@ -111,6 +112,7 @@ def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
     return np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)], axis=0)
 
 
+@profiling.phase("scene.build")
 def pack_triangles(meshes: list[tuple[dict, int]], block: int = 128,
                    reorder: Optional[np.ndarray] = None,
                    device=None) -> TrianglePack:

@@ -33,6 +33,7 @@ from cse168_raytracer_tpu_torch.models.textures import (CellularTexture,
                                                         active_kinds,
                                                         has_bump,
                                                         make_environment)
+from cse168_raytracer_tpu_torch.utils import profiling
 
 if TYPE_CHECKING:
     from cse168_raytracer_tpu_torch.ops.photon import PhotonMaps
@@ -83,6 +84,7 @@ def make_static(materials: MaterialTable, lights: LightTable) -> SceneStatic:
         any_reflective=bool((materials.ks > 0).any()))
 
 
+@profiling.phase("scene.build")
 def make_scene(tris: Optional[TrianglePack] = None,
                spheres: Optional[SpherePool] = None,
                planes: Optional[PlanePool] = None,

@@ -48,6 +48,7 @@ from cse168_raytracer_tpu_torch.ops.intersect import (PRIM_TRI, _BIG, Hit,
                                                       _occluded_by_pools,
                                                       _then_pools)
 from cse168_raytracer_tpu_torch.ops.pluecker import triangle_t
+from cse168_raytracer_tpu_torch.utils import profiling
 
 MAX_W4_TRIS = 300_000
 BLOCK = 128   # triangles per leaf block
@@ -148,6 +149,7 @@ def build_accel(pack: TrianglePack) -> BlockAccel:
                       w4=pack.w4, valid=pack.valid)
 
 
+@profiling.phase("accel.build")
 def attach_accel(scene, kind: str = "auto", **kwargs):
     """Build the accelerator `kind` (see the module docstring) over the
     scene's triangles on the scene's device and return the updated

@@ -48,10 +48,13 @@ from cse168_raytracer_tpu_torch.ops.intersect import _BIG
 from cse168_raytracer_tpu_torch.ops.wide_bvh import (K, _bounds, _leaf_test,
                                                      _leafW_from_pack,
                                                      _padded_entry, _route,
-                                                     check_launch)
+                                                     _raise_on, check_launch)
+from cse168_raytracer_tpu_torch.utils import profiling
 
-# kernel launches by mode, counted where the wrapper launches the kernel
-LAUNCHES = {"closest": 0, "any": 0, "stats_closest": 0, "stats_any": 0}
+# the counters of kernel launches by mode, launch.binary.<mode>, counted
+# where the wrapper launches the kernel
+LAUNCH = "launch.binary"
+profiling.declare(LAUNCH, ("closest", "any", "stats_closest", "stats_any"))
 
 
 @dataclasses.dataclass
@@ -291,20 +294,18 @@ def _launch(bvh: BinaryBVH, o, d, tmin, tmax, any_hit: bool,
     err = torch.zeros((1,), **i32)
     stream = torch.cuda.current_stream(o.device).cuda_stream
     ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
-    rc = lib.traverse_binary(
-        int(any_hit), ptr(o), ptr(d), ptr(tmin), ptr(tmax), n,
-        ptr(bvh.cbox), ptr(bvh.leafW), bvh.n_nodes, bvh.n_leaves,
-        bvh.stack_depth, ptr(out_t), ptr(out_id), ptr(out_nv), ptr(out_lv),
-        ptr(err), ctypes.c_void_p(stream))
+    with profiling.span("bvh.launch"):
+        rc = lib.traverse_binary(
+            int(any_hit), ptr(o), ptr(d), ptr(tmin), ptr(tmax), n,
+            ptr(bvh.cbox), ptr(bvh.leafW), bvh.n_nodes, bvh.n_leaves,
+            bvh.stack_depth, ptr(out_t), ptr(out_id), ptr(out_nv),
+            ptr(out_lv), ptr(err), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"traverse_binary launch failed: CUDA error {rc}")
     mode = "any" if any_hit else "closest"
-    LAUNCHES["stats_" + mode if with_stats else mode] += 1
-    bits = int(err.item())
-    if bits:
-        raise RuntimeError(
-            f"traverse_binary: {'stack overflow ' if bits & 1 else ''}"
-            f"{'bad link' if bits & 2 else ''} (error bits {bits})")
+    profiling.count(f"{LAUNCH}.{'stats_' if with_stats else ''}{mode}")
+    profiling.count("bvh.lanes", n)
+    _raise_on(err, "traverse_binary")
     return out_t, out_id, out_nv, out_lv
 
 

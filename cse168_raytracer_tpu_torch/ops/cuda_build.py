@@ -18,7 +18,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
+
+from cse168_raytracer_tpu_torch.utils import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -32,9 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 SOURCES = ("traverse_wide.cu", "traverse_binary.cu", "tri_blocks.cu",
            "segment_sum.cu")
 
-# the plain builds (no `defines`) this process used: {source: {"seconds",
-# "log", "path"}}, "seconds" None where the library was already built;
-# "log" is nvcc's output (its -Xptxas -v report), kept beside the library
+# the plain builds (no `defines`) this process used: {source: {"built",
+# "log", "path"}}, "built" False where the library was already built;
+# "log" is nvcc's output (its -Xptxas -v report), kept beside the library.
+# The seconds of the loads are the tracer's phase kernels.load.
 BUILD_INFO: dict = {}
 
 
@@ -67,11 +69,10 @@ def build_library(source: str, defines: tuple = ()) -> str:
         if os.path.exists(lib) and os.path.exists(log_path):
             if not defines:
                 with open(log_path) as f:
-                    BUILD_INFO.setdefault(source, {"seconds": None,
+                    BUILD_INFO.setdefault(source, {"built": False,
                                                    "log": f.read(),
                                                    "path": lib})
             return lib
-        t0 = time.perf_counter()
         tmp = lib + ".tmp"
         res = subprocess.run([find_nvcc(), *flags, "-o", tmp, src_path],
                              capture_output=True, text=True)
@@ -82,12 +83,15 @@ def build_library(source: str, defines: tuple = ()) -> str:
             f.write(res.stdout + res.stderr)
         os.replace(tmp, lib)
         if not defines:
-            BUILD_INFO[source] = {"seconds": time.perf_counter() - t0,
+            BUILD_INFO[source] = {"built": True,
                                   "log": res.stdout + res.stderr, "path": lib}
     return lib
 
 
+@profiling.phase("kernels.load")
 def load_library(source: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The library of csrc/<source> built with `defines`, loaded: the
+    hash, nvcc where the build is missing, and the dlopen."""
     return ctypes.CDLL(build_library(source, defines))
 
 

@@ -29,6 +29,7 @@ from cse168_raytracer_tpu_torch.models.geometry import (BLPatchPool,
                                                         PlanePool, SpherePool,
                                                         TrianglePack,
                                                         plucker_operands)
+from cse168_raytracer_tpu_torch.utils import profiling
 
 PRIM_NONE = 0
 PRIM_TRI = 1
@@ -52,7 +53,15 @@ class Hit:
 def _bounds(tmin, tmax, o):
     n = o.shape[0]
     as_t = lambda x: torch.as_tensor(x, dtype=o.dtype, device=o.device)
-    return as_t(tmin).expand(n), as_t(tmax).expand(n)
+    with profiling.sync("pool_bounds", o, n=_copies(o, tmin, tmax)):
+        return as_t(tmin).expand(n), as_t(tmax).expand(n)
+
+
+def _copies(o, *xs) -> int:
+    """How many of xs torch.as_tensor copies to o's device (a number or
+    a tensor elsewhere): each copy to the card blocks the host."""
+    return sum(not (isinstance(x, torch.Tensor) and x.device == o.device)
+               for x in xs)
 
 
 def _hit(t, ids, prim_type) -> Hit:

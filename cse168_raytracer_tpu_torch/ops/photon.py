@@ -69,6 +69,7 @@ from cse168_raytracer_tpu_torch.models.scene import Scene, SceneStatic
 from cse168_raytracer_tpu_torch.models.textures import diffuse_color
 from cse168_raytracer_tpu_torch.ops.segment_sum import segment_sum
 from cse168_raytracer_tpu_torch.ops.shading import trace_closest
+from cse168_raytracer_tpu_torch.utils import profiling
 
 _H1, _H2, _H3 = 73856093, 19349663, 83492791  # classic spatial-hash primes
 _U32 = 0xFFFFFFFF
@@ -204,7 +205,8 @@ def _candidates(grid: PhotonGrid, p: torch.Tensor):
     int64 clipped to the table, valid (N, M)), M = 27 * max_per_cell."""
     nn = p.shape[0]
     base = floor_i32(p / grid.radius)                          # (N, 3)
-    offs = torch.as_tensor(_OFFS, dtype=torch.int64, device=p.device)
+    with profiling.sync("photon_offsets", p):
+        offs = torch.as_tensor(_OFFS, dtype=torch.int64, device=p.device)
     h = _hash_cells(base[:, None, :] + offs[None], grid.table_size)
     # neighbour cells can share a bucket; probing one twice would count
     # its run twice. Sort the 27 probes and keep one per bucket.
@@ -325,6 +327,7 @@ class _Irradiance(torch.autograd.Function):
         return irr
 
     @staticmethod
+    @profiling.traced("backward.irradiance")
     def backward(ctx, g):
         grid = ctx.grid
         p, n, r2, r2_c, use_c = ctx.saved_tensors
@@ -578,6 +581,7 @@ def _auto_radius(pos: np.ndarray, k_target: int, max_per_cell: int) -> float:
     return float(np.clip(r, 1e-4 * diag, 0.1 * diag))
 
 
+@profiling.phase("photons.build")
 def build_photon_maps(scene: Scene, static: SceneStatic, cfg: RenderConfig,
                       gen: torch.Generator,
                       path_tracing: Optional[bool] = None,

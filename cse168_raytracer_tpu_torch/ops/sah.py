@@ -36,6 +36,7 @@ import numpy as np
 from cse168_raytracer_tpu_torch.models.geometry import (TrianglePack,
                                                         build_pack_from_arrays,
                                                         pack_host_arrays)
+from cse168_raytracer_tpu_torch.utils import profiling
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -170,6 +171,7 @@ def _sah_numpy(lo, hi, cent, leaf_cap):
     return np.stack(nodes), np.stack(leaves), max_depth[0]
 
 
+@profiling.phase("accel.sah")
 def sah_build_and_reorder(pack: TrianglePack, leaf_cap: int = 32,
                           require_native: bool = True,
                           with_plucker: bool = True):

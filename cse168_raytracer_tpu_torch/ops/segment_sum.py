@@ -38,14 +38,17 @@ import ctypes
 import torch
 
 from cse168_raytracer_tpu_torch.ops import cuda_build
+from cse168_raytracer_tpu_torch.utils import profiling
 
 # what a call of the kernel runs (segment_sum_launch's `parts`): the sort
 # and the scan into runs, the sums, the zero-fill of the rows
 SORT, SUMS, ZERO = 1, 2, 4
 
-# calls of the kernel, counted where the wrapper launches them: every
-# segment_sum on the card, and those of them that sort (n_rows > 1)
-LAUNCHES = {"segment_sum": 0, "segment_sort": 0}
+# the counters of the kernel's calls, launch.segment_sum.<mode>, counted
+# where the wrapper launches them: "sums", every segment_sum on the card,
+# and "sort", those calls and stable_order's that sort (n_rows > 1)
+LAUNCH = "launch.segment_sum"
+profiling.declare(LAUNCH, ("sums", "sort"))
 
 
 def _runs(ids: torch.Tensor, n_rows: int):
@@ -130,11 +133,12 @@ def _launch(values: torch.Tensor, ids: torch.Tensor,
     perm = torch.empty(n if n_rows > 1 else 0, dtype=torch.int32,
                        device=dev)
     out = torch.empty((n_rows, cols), dtype=values.dtype, device=dev)
-    run_parts(values, ids, n_rows, perm, scratch_for(n, cols, n_rows, dev),
-              out, SORT | SUMS | ZERO)
-    LAUNCHES["segment_sum"] += 1
+    with profiling.span("segment_sum.launch"):
+        run_parts(values, ids, n_rows, perm,
+                  scratch_for(n, cols, n_rows, dev), out, SORT | SUMS | ZERO)
+    profiling.count(LAUNCH + ".sums")
     if n_rows > 1:
-        LAUNCHES["segment_sort"] += 1
+        profiling.count(LAUNCH + ".sort")
     return out
 
 
@@ -144,7 +148,7 @@ def _sort_launch(ids: torch.Tensor, n_rows: int) -> torch.Tensor:
     out = torch.empty((n_rows, 1), device=ids.device)
     run_parts(None, ids, n_rows, perm,
               scratch_for(ids.shape[0], 1, n_rows, ids.device), out, SORT)
-    LAUNCHES["segment_sort"] += 1
+    profiling.count(LAUNCH + ".sort")
     return perm
 
 
@@ -168,6 +172,8 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor,
     if values.dim() != 2 or ids.shape != values.shape[:1]:
         raise ValueError(f"segment_sum: need values (N, C) and ids (N,), "
                          f"got {tuple(values.shape)} and {tuple(ids.shape)}")
+    profiling.record("segment_sum", (values.shape[0], values.shape[1],
+                                     int(n_rows)))
     if values.device.type == "cpu":
         return segment_sum_plain(values, ids, n_rows)
     if values.device.type != "cuda":

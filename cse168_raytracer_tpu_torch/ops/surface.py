@@ -37,6 +37,7 @@ from cse168_raytracer_tpu_torch.ops.intersect import (PRIM_BLPATCH,
                                                       PRIM_PLANE, PRIM_SPHERE,
                                                       PRIM_TRI, Hit)
 from cse168_raytracer_tpu_torch.ops.segment_sum import segment_sum
+from cse168_raytracer_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -78,6 +79,7 @@ class ReattachRows(torch.autograd.Function):
         return rows.clone()
 
     @staticmethod
+    @profiling.traced("backward.reattach_rows")
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         tab = segment_sum(g[:, :29], ids.long(), ctx.n_rows)
@@ -260,7 +262,8 @@ def make_surface(tris: TrianglePack, spheres: SpherePool, planes: PlanePool,
     # pin missed lanes to benign values (their garbage would NaN
     # gradients through later masked math)
     ok = hit.hit[:, None]
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=p.dtype, device=p.device)
+    with profiling.sync("surface_up", p):
+        up = torch.tensor([0.0, 1.0, 0.0], dtype=p.dtype, device=p.device)
     return Surface(p=torch.where(ok, p, 0.0), n=torch.where(ok, n, up),
                    geo_n=torch.where(ok, gn, up),
                    uv=torch.where(ok, uv, 0.0),

@@ -42,13 +42,16 @@ from cse168_raytracer_tpu_torch.ops.intersect import _BIG
 from cse168_raytracer_tpu_torch.ops.pluecker import triangle_t
 from cse168_raytracer_tpu_torch.ops.wide_bvh import (_bounds, _route,
                                                      check_launch)
+from cse168_raytracer_tpu_torch.utils import profiling
 
 BLOCK = 256
 RAY_TILE = 256
 _FAR = 1.0e30
 
-# kernel launches, counted where the wrapper launches the kernel
-LAUNCHES = {"closest": 0}
+# the counter of kernel launches, launch.blocks.closest, counted where
+# the wrapper launches the kernel
+LAUNCH = "launch.blocks"
+profiling.declare(LAUNCH, ("closest",))
 
 
 @dataclasses.dataclass
@@ -202,13 +205,16 @@ def _launch(blocks: TriBlocks, o, d, tmin, tmax, count_pairs: bool = False):
     keys = torch.empty((n,), dtype=torch.int64, device=dev)
     ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _kernel_lib().tri_blocks_closest(
-        ptr(blocks.aabb), ptr(blocks.w6), ptr(blocks.w4), nb, ptr(o),
-        ptr(d), ptr(tmin), ptr(tmax), n, ptr(masks), ptr(keys), ptr(out_t),
-        ptr(out_id), ptr(pairs), ctypes.c_void_p(stream))
+    lib = _kernel_lib()
+    with profiling.span("bvh.launch"):
+        rc = lib.tri_blocks_closest(
+            ptr(blocks.aabb), ptr(blocks.w6), ptr(blocks.w4), nb, ptr(o),
+            ptr(d), ptr(tmin), ptr(tmax), n, ptr(masks), ptr(keys),
+            ptr(out_t), ptr(out_id), ptr(pairs), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"tri_blocks launch failed: CUDA error {rc}")
-    LAUNCHES["closest"] += 1
+    profiling.count(f"{LAUNCH}.closest")
+    profiling.count("bvh.lanes", n)
     return (out_t, out_id, pairs) if count_pairs else (out_t, out_id)
 
 

@@ -53,15 +53,18 @@ from cse168_raytracer_tpu_torch.models.geometry import (TrianglePack,
                                                         pack_host_arrays,
                                                         plucker_operands)
 from cse168_raytracer_tpu_torch.ops import cuda_build
-from cse168_raytracer_tpu_torch.ops.intersect import _BIG
+from cse168_raytracer_tpu_torch.ops.intersect import _BIG, _copies
 from cse168_raytracer_tpu_torch.ops.pluecker import triangle_t
+from cse168_raytracer_tpu_torch.utils import profiling
 
 K = 128          # triangles per leaf
 _FAR = 1.0e30    # empty-slot box (a degenerate point the slab test rejects)
 BOX_PAD = 1e-3   # slot widening, traverse_wide.cu's BOX_PAD
 
-# kernel launches by mode, counted where the wrapper launches the kernel
-LAUNCHES = {"closest": 0, "any": 0, "stats_closest": 0, "stats_any": 0}
+# the counters of kernel launches by mode, launch.wide.<mode>, counted
+# where the wrapper launches the kernel
+LAUNCH = "launch.wide"
+profiling.declare(LAUNCH, ("closest", "any", "stats_closest", "stats_any"))
 
 
 @dataclasses.dataclass
@@ -257,17 +260,23 @@ def build_bvh4_sah(pack: TrianglePack, width: int = 4,
         require_native = device.type == "cuda"
     new_pack, nodes14, n_leaves, _depth = sah_build_and_reorder(
         pack, K, require_native=require_native, with_plucker=False)
-    cboxw, linksw, depthw = _collapse_wide(nodes14.astype(np.float32), width)
-    a = pack_host_arrays(new_pack)
-    w6, w4 = plucker_operands(a["v0"], a["e1"], a["e2"], n_geo=a["n_geo"])
-    t = lambda x: torch.as_tensor(x, device=device)
-    bvh = WideBVH(cbox=t(cboxw), links=t(linksw.reshape(-1)),
-                  leafW=t(_leafW_from_pack(np.asarray(w6, np.float32),
-                                           np.asarray(w4, np.float32),
-                                           n_leaves)),
-                  attrA=t(_attrA_from_pack(a, n_leaves)),
-                  n_nodes=int(cboxw.shape[0]), n_leaves=int(n_leaves),
-                  stack_depth=int((width - 1) * depthw + 8), width=width)
+    with profiling.phase("accel.wide"):
+        cboxw, linksw, depthw = _collapse_wide(nodes14.astype(np.float32),
+                                               width)
+    # the leaf tables made on the host from the leaf-ordered pack, and the
+    # tree's arrays copied to the device
+    with profiling.phase("accel.upload"):
+        a = pack_host_arrays(new_pack)
+        w6, w4 = plucker_operands(a["v0"], a["e1"], a["e2"],
+                                  n_geo=a["n_geo"])
+        t = lambda x: torch.as_tensor(x, device=device)
+        bvh = WideBVH(cbox=t(cboxw), links=t(linksw.reshape(-1)),
+                      leafW=t(_leafW_from_pack(np.asarray(w6, np.float32),
+                                               np.asarray(w4, np.float32),
+                                               n_leaves)),
+                      attrA=t(_attrA_from_pack(a, n_leaves)),
+                      n_nodes=int(cboxw.shape[0]), n_leaves=int(n_leaves),
+                      stack_depth=int((width - 1) * depthw + 8), width=width)
     return new_pack, bvh
 
 
@@ -279,7 +288,8 @@ def _bounds(o, tmin, tmax):
     n = o.shape[0]
     as_t = lambda x: torch.as_tensor(x, dtype=torch.float32,
                                      device=o.device).expand(n).contiguous()
-    return as_t(tmin), as_t(tmax)
+    with profiling.sync("ray_bounds", o, n=_copies(o, tmin, tmax)):
+        return as_t(tmin), as_t(tmax)
 
 
 def _chunk_sizes(n_leaves: int, device) -> tuple[int, int]:
@@ -593,11 +603,12 @@ def _call(lib, bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
     return (out_t, out_id, out_attr, out_nv, out_lv), err
 
 
-def _raise_on(err):
+def _raise_on(err, kernel: str = "traverse_wide"):
     """The per-launch check: a stack overflow or a bad link raises."""
-    bits = int(err.item())
+    with profiling.sync("launch_error", err):
+        bits = int(err.item())
     if bits:
-        raise RuntimeError(f"traverse_wide: {'stack overflow ' if bits & 1 else ''}"
+        raise RuntimeError(f"{kernel}: {'stack overflow ' if bits & 1 else ''}"
                            f"{'bad link' if bits & 2 else ''} (error bits {bits})")
 
 
@@ -607,10 +618,12 @@ def _launch(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
     leaf visits), the entries a mode does not produce being None."""
     lib = _kernel_lib()
     _stack_smem_bytes(lib, bvh.stack_depth)
-    out, err = _call(lib, bvh, o, d, tmin, tmax, any_hit, with_stats)
+    with profiling.span("bvh.launch"):
+        out, err = _call(lib, bvh, o, d, tmin, tmax, any_hit, with_stats)
     if err is not None:
         mode = "any" if any_hit else "closest"
-        LAUNCHES["stats_" + mode if with_stats else mode] += 1
+        profiling.count(f"{LAUNCH}.{'stats_' if with_stats else ''}{mode}")
+        profiling.count("bvh.lanes", o.shape[0])
         _raise_on(err)
     return out
 

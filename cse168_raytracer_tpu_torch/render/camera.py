@@ -19,6 +19,7 @@ from cse168_raytracer_tpu_torch.config import PI, resolve_device
 from cse168_raytracer_tpu_torch.core.sampling import uniform, uniform_disc
 from cse168_raytracer_tpu_torch.core.vecmath import (cross, div_scalar,
                                                      safe_normalize)
+from cse168_raytracer_tpu_torch.utils import profiling
 
 DEG_TO_RAD = PI / 180.0
 HALF_DEG_TO_RAD = DEG_TO_RAD / 2.0  # Camera.cpp:15
@@ -59,7 +60,9 @@ def camera_basis(cam: Camera, width: int, height: int):
     # tan on the host: no device rounds tanf correctly and the card's may
     # differ from the CPU's by an ulp; the rest of the camera is
     # device-stable (core/vecmath.py: sqrt_rn, and div_scalar below)
-    top = torch.tan(cam.fov.cpu() * HALF_DEG_TO_RAD).to(cam.fov.device)
+    # (on the card the copy there and back blocks the host twice)
+    with profiling.sync("camera_fov", cam.fov, n=2):
+        top = torch.tan(cam.fov.cpu() * HALF_DEG_TO_RAD).to(cam.fov.device)
     right = aspect * top
     return w_dir, u_dir, v_dir, top, right
 

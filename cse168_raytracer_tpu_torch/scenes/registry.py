@@ -41,6 +41,7 @@ from cse168_raytracer_tpu_torch.models.scene import make_scene
 from cse168_raytracer_tpu_torch.models.textures import (
     build_cellular_texture, load_image_texture, make_environment)
 from cse168_raytracer_tpu_torch.render.camera import make_camera
+from cse168_raytracer_tpu_torch.utils import profiling
 
 # the reference assets' location, as the JAX registry names it
 # (cse168_raytracer_tpu/scenes/registry.py:39-40)
@@ -702,6 +703,7 @@ SCENES: dict[str, Callable] = {
 }
 
 
+@profiling.phase("scene.build")
 def build(name: str, cfg: Optional[RenderConfig] = None, device=None):
     """Build a named scene on `device` (None: the card). Returns (Scene,
     SceneStatic, Camera, RenderConfig)."""

@@ -67,6 +67,7 @@ from cse168_raytracer_tpu_torch.ops import stats as tstats  # noqa: E402
 from cse168_raytracer_tpu_torch.ops import tri_blocks as ttb  # noqa: E402
 from cse168_raytracer_tpu_torch.render.integrator import \
     render_hdr  # noqa: E402
+from cse168_raytracer_tpu_torch.utils import profiling  # noqa: E402
 
 MESHES = {"clustered": lambda: clustered_mesh(3000, 16),
           "sponza_cut": lambda: _make_sponza_proxy(target_tris=4000)}
@@ -570,7 +571,9 @@ def test_wrappers_route_cpu_tensors_to_plain():
     _, bvh, _ = kind_pair("clustered", "pallas_sah")
     _, blocks, _ = kind_pair("clustered", "pallas")
     r = [torch.as_tensor(x) for x in scene_rays("clustered", 70)]
-    before = (dict(tbb.LAUNCHES), dict(ttb.LAUNCHES))
+    counted = lambda: (profiling.counts(tbb.LAUNCH),
+                       profiling.counts(ttb.LAUNCH))
+    before = counted()
     for a, b in zip(tbb.closest_hit_triangles(bvh, *r, with_stats=True),
                     tbb.closest_hit_triangles_plain(bvh, *r, True)):
         assert torch.equal(a, b)
@@ -579,7 +582,7 @@ def test_wrappers_route_cpu_tensors_to_plain():
     for a, b in zip(ttb.closest_hit(blocks, *r),
                     ttb.closest_hit_plain(blocks, *r)):
         assert torch.equal(a, b)
-    assert (dict(tbb.LAUNCHES), dict(ttb.LAUNCHES)) == before
+    assert counted() == before
     meta = [x.to("meta") for x in r]
     with pytest.raises(ValueError):
         tbb.closest_hit_triangles(bvh, *meta)
@@ -609,10 +612,10 @@ def emulated(card_libs, monkeypatch):
     monkeypatch.setattr(ttb, "_lib", card_libs[1])
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
-    launches = (dict.fromkeys(tbb.LAUNCHES, 0), dict.fromkeys(ttb.LAUNCHES, 0))
-    monkeypatch.setattr(tbb, "LAUNCHES", launches[0])
-    monkeypatch.setattr(ttb, "LAUNCHES", launches[1])
-    return launches
+    monkeypatch.setattr(profiling, "COUNTS",
+                        dict.fromkeys(profiling.COUNTS, 0))
+    return lambda: (profiling.counts(tbb.LAUNCH),
+                    profiling.counts(ttb.LAUNCH))
 
 
 def ragged_rays(name, seed, n=300):
@@ -689,7 +692,7 @@ def test_k5_card_walk_matches_plain_and_pallas(emulated, name, kind):
     assert 10 < hit.sum() and np.all(t[3::7] == BIG)
     np.testing.assert_array_equal(occ < BIG, pallas_k5(jtree, r, True)[0]
                                   < BIG)
-    assert emulated[0] == {"closest": 1, "any": 1, "stats_closest": 1,
+    assert emulated()[0] == {"closest": 1, "any": 1, "stats_closest": 1,
                            "stats_any": 1}
 
 
@@ -735,7 +738,7 @@ def test_k5_card_walk_reports_errors(emulated):
     for depth in (0, 228):
         with pytest.raises(ValueError, match="shared memory"):
             tbb._stack_smem_bytes(lib, depth)
-    assert sum(emulated[0].values()) == 2
+    assert sum(emulated()[0].values()) == 2
 
 
 def check_k6_card(blocks, r):
@@ -763,7 +766,7 @@ def test_k6_card_matches_plain_and_pallas(emulated, name):
     hit = assert_hits_match(t, ids, jt, np.asarray(h.prim_id))
     assert 10 < hit.sum() and np.all(t[3::7] == BIG)
     assert 0 < pairs <= 3 * blocks.num_blocks
-    assert emulated[1] == {"closest": 1}
+    assert emulated()[1] == {"closest": 1}
 
 
 def test_k6_card_ties(emulated):

@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 from cse168_raytracer_tpu_torch.models.geometry import \
     pack_triangles  # noqa: E402
 from cse168_raytracer_tpu_torch.ops import wide_bvh  # noqa: E402
+from cse168_raytracer_tpu_torch.utils import profiling  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 BIG = 3.0e37
@@ -117,12 +118,13 @@ def test_kernel_matches_twin_on_card(cuda, width):
     pack = pack_triangles([(clustered_mesh(3000, 16), 0)], device=cuda)
     bvh = wide_bvh.build_bvh4_sah(pack, width=width)[1]
     o, d, tmin, tmax = rays(60, 4096, cuda)
-    before = dict(wide_bvh.LAUNCHES)
+    before = profiling.counts(wide_bvh.LAUNCH)
     t, ids, attr = wide_bvh.closest_hit_triangles(bvh, o, d, tmin, tmax)
     occ = wide_bvh.any_hit_triangles(bvh, o, d, tmin, tmax)
     torch.cuda.synchronize()
-    assert wide_bvh.LAUNCHES["closest"] == before["closest"] + 1
-    assert wide_bvh.LAUNCHES["any"] == before["any"] + 1
+    after = profiling.counts(wide_bvh.LAUNCH)
+    assert after["closest"] == before["closest"] + 1
+    assert after["any"] == before["any"] + 1
     # the plain version walks the same tree in the same order: equal
     for a, b in zip((t, ids, attr), wide_bvh.closest_hit_triangles_plain(
             bvh, o, d, tmin, tmax)):
@@ -150,7 +152,7 @@ def test_stats_kernel_matches_walk_plain_on_card(cuda, width, any_hit):
     bvh = wide_bvh.build_bvh4_sah(pack, width=width)[1]
     o, d, tmin, tmax = rays(62, 4096, cuda)
     mode = "any" if any_hit else "closest"
-    before = dict(wide_bvh.LAUNCHES)
+    before = profiling.counts(wide_bvh.LAUNCH)
     if any_hit:
         t, box, tri = wide_bvh.any_hit_triangles(bvh, o, d, tmin, tmax,
                                                  with_stats=True)
@@ -162,7 +164,8 @@ def test_stats_kernel_matches_walk_plain_on_card(cuda, width, any_hit):
                                                          tmax)
         assert torch.equal(ids, ids0) and torch.equal(attr, attr0)
     torch.cuda.synchronize()
-    assert wide_bvh.LAUNCHES["stats_" + mode] == before["stats_" + mode] + 1
+    key = "stats_" + mode
+    assert profiling.counts(wide_bvh.LAUNCH)[key] == before[key] + 1
     assert torch.equal(t, t0)
     tp, idp, n_int, n_leaf = wide_bvh.walk_plain(bvh, o, d, tmin, tmax,
                                                  any_hit=any_hit)
@@ -201,10 +204,10 @@ def test_card_walk_refuses_a_stack_over_shared_memory(cuda):
     bvh = wide_bvh.build_bvh4_sah(pack, width=4)[1]
     deep = dataclasses.replace(bvh, stack_depth=455)
     o, d, tmin, tmax = rays(61, 256, cuda)
-    before = dict(wide_bvh.LAUNCHES)
+    before = profiling.counts(wide_bvh.LAUNCH)
     with pytest.raises(ValueError, match="shared memory"):
         wide_bvh.closest_hit_triangles(deep, o, d, tmin, tmax)
-    assert wide_bvh.LAUNCHES == before
+    assert profiling.counts(wide_bvh.LAUNCH) == before
 
 
 @pytest.mark.parametrize("depth", [97, 454])
@@ -232,15 +235,16 @@ def test_binary_kernel_matches_plain_on_card(cuda, any_hit):
     bvh = binary_bvh.build_binary_bvh_sah(pack)[1]
     o, d, tmin, tmax = rays(63, 4096, cuda)
     mode = "any" if any_hit else "closest"
-    before = dict(binary_bvh.LAUNCHES)
+    before = profiling.counts(binary_bvh.LAUNCH)
     kern = (binary_bvh.any_hit_triangles if any_hit
             else binary_bvh.closest_hit_triangles)
     got = kern(bvh, o, d, tmin, tmax)
     got = got if isinstance(got, tuple) else (got,)
     *counted, box, tri = kern(bvh, o, d, tmin, tmax, with_stats=True)
     torch.cuda.synchronize()
-    assert binary_bvh.LAUNCHES[mode] == before[mode] + 1
-    assert binary_bvh.LAUNCHES["stats_" + mode] == before["stats_" + mode] + 1
+    after = profiling.counts(binary_bvh.LAUNCH)
+    assert after[mode] == before[mode] + 1
+    assert after["stats_" + mode] == before["stats_" + mode] + 1
     tp, idp, n_int, n_leaf = binary_bvh.walk_binary_plain(
         bvh, o, d, tmin, tmax, any_hit=any_hit)
     for a, b, c in zip(got, counted, (tp, idp)):
@@ -303,10 +307,10 @@ def test_block_kernel_matches_plain_on_card(cuda):
         a["v0"], a["e1"], a["e2"], a["valid"]))
     blocks = tri_blocks.build_tri_blocks(pack)
     o, d, tmin, tmax = rays(65, 4000, cuda)
-    before = tri_blocks.LAUNCHES["closest"]
+    before = profiling.counts(tri_blocks.LAUNCH)["closest"]
     t, ids = tri_blocks.closest_hit(blocks, o, d, tmin, tmax)
     torch.cuda.synchronize()
-    assert tri_blocks.LAUNCHES["closest"] == before + 1
+    assert profiling.counts(tri_blocks.LAUNCH)["closest"] == before + 1
     tp, idp, pairs = tri_blocks.closest_hit_plain(blocks, o, d, tmin, tmax,
                                                   count_pairs=True)
     assert torch.equal(t, tp) and torch.equal(ids, idp) and pairs > 0
@@ -585,12 +589,12 @@ def test_segment_sum_kernel_equals_plain_on_card(cuda):
     for v, i, n_rows in cases:
         tv, ti = torch.as_tensor(v), torch.as_tensor(i)
         want = ss.segment_sum_plain(tv, ti, n_rows)
-        before = dict(ss.LAUNCHES)
+        before = profiling.counts(ss.LAUNCH)
         a = ss.segment_sum(tv.to(cuda), ti.to(cuda), n_rows)
         b = ss.segment_sum(tv.to(cuda), ti.to(cuda), n_rows)
-        assert ss.LAUNCHES["segment_sum"] == before["segment_sum"] + 2
+        assert profiling.counts(ss.LAUNCH)["sums"] == before["sums"] + 2
         # one row: no sort
-        assert ss.LAUNCHES["segment_sort"] == before["segment_sort"] + (
+        assert profiling.counts(ss.LAUNCH)["sort"] == before["sort"] + (
             2 if n_rows > 1 else 0)
         assert torch.equal(a.cpu(), want) and torch.equal(a, b)
 

@@ -43,6 +43,7 @@ from cse168_raytracer_tpu_torch.core.vecmath import sum_fixed  # noqa: E402
 from cse168_raytracer_tpu_torch.ops import photon as tp  # noqa: E402
 from cse168_raytracer_tpu_torch.ops import segment_sum as ss  # noqa: E402
 from cse168_raytracer_tpu_torch.ops.surface import ReattachRows  # noqa: E402
+from cse168_raytracer_tpu_torch.utils import profiling  # noqa: E402
 from test_torch_photon import (N_TRACE, caustic_scene,  # noqa: E402
                                compare_batches, fed_uniforms, feed_trace,
                                gather_case, np_tree, plain_irradiance)
@@ -380,9 +381,9 @@ def emulated(segsum_card, monkeypatch):
     monkeypatch.setattr(ss, "_lib", segsum_card)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
-    launches = dict.fromkeys(ss.LAUNCHES, 0)
-    monkeypatch.setattr(ss, "LAUNCHES", launches)
-    return launches
+    monkeypatch.setattr(profiling, "COUNTS",
+                        dict.fromkeys(profiling.COUNTS, 0))
+    return lambda: profiling.counts(ss.LAUNCH)
 
 
 def big_run_case(rng, cols):
@@ -483,9 +484,9 @@ def test_card_kernel_equals_plain(emulated, case):
     want = ss.segment_sum_plain(v, i, n_rows)
     first = ss._launch(v, i, n_rows)
     again = ss._launch(v, i, n_rows)
-    assert emulated["segment_sum"] == 2
+    assert emulated()["sums"] == 2
     # the sort runs only with more than one row
-    assert emulated["segment_sort"] == (2 if n_rows > 1 else 0)
+    assert emulated()["sort"] == (2 if n_rows > 1 else 0)
     assert torch.equal(first, want) and torch.equal(again, first)
     assert bits(first.numpy()).tobytes() == bits(want.numpy()).tobytes()
     if case == "-0.0 beside an empty row":
@@ -505,4 +506,4 @@ def test_card_sort_is_torch_sort(emulated, case):
     perm = ss._sort_launch(i, n_rows)
     assert perm.dtype == torch.int32
     assert torch.equal(perm.long(), torch.sort(i, stable=True)[1])
-    assert emulated["segment_sort"] == 1 and emulated["segment_sum"] == 0
+    assert emulated()["sort"] == 1 and emulated()["sums"] == 0

@@ -57,6 +57,9 @@ NAME_EXCEPTIONS = {
     ("core/fastgather.py", "ONEHOT_MAX_ROWS"):
         "the TPU's threshold between a one-hot matmul gather and a take; "
         "the port always gathers directly",
+    ("utils/profiling.py", "device_trace"):
+        "jax.profiler's trace capture; the port's spans and phases are "
+        "events of whatever torch.profiler session a caller opens",
 }
 # modules without a port module at their path: the Pallas kernels, ported
 # by hand into these modules (ROADMAP.md queue B)

@@ -27,6 +27,7 @@ from cse168_raytracer_tpu.ops import pallas_bvh as jpb  # noqa: E402
 from cse168_raytracer_tpu_torch.ops import wide_bvh as twb  # noqa: E402
 from cse168_raytracer_tpu_torch.ops.stats import \
     traversal_stats  # noqa: E402
+from cse168_raytracer_tpu_torch.utils import profiling  # noqa: E402
 from test_torch_traverse import (BIG, MESHES, build_both,  # noqa: E402,F401
                                  check_against_brute, host_lib, host_walk,
                                  rays)
@@ -173,7 +174,7 @@ def test_stats_route_and_traversal_stats():
     traversal_stats is their mean per ray."""
     *_, tbvh = build_both("tri3000", 4)
     r = as_t(rays(110, 512))
-    before = dict(twb.LAUNCHES)
+    before = profiling.counts(twb.LAUNCH)
     t, ids, attr, box, tri = twb.closest_hit_triangles(tbvh, *r,
                                                        with_stats=True)
     t0, ids0, attr0 = twb.closest_hit_triangles(tbvh, *r)
@@ -184,7 +185,7 @@ def test_stats_route_and_traversal_stats():
     occ, abox, atri = twb.any_hit_triangles(tbvh, *r, with_stats=True)
     assert torch.equal(occ < BIG, t0 < BIG)
     assert int(abox.sum()) <= int(box.sum())  # any-hit stops early
-    assert twb.LAUNCHES == before
+    assert profiling.counts(twb.LAUNCH) == before
     st = traversal_stats(tbvh, r[0], r[1], r[2], r[3])
     assert st.rays == 512
     assert float(st.box_tests_per_ray) == pytest.approx(

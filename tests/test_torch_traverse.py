@@ -30,6 +30,7 @@ from cse168_raytracer_tpu_torch.models import geometry as tgeo  # noqa: E402
 from cse168_raytracer_tpu_torch.ops import wide_bvh as twb  # noqa: E402
 from cse168_raytracer_tpu_torch.ops.intersect import \
     intersect_triangles as t_intersect  # noqa: E402
+from cse168_raytracer_tpu_torch.utils import profiling  # noqa: E402
 
 BIG = 3.0e37
 N_RAYS = 256      # the Pallas kernel runs interpreted: keep it small
@@ -173,14 +174,14 @@ def test_twin_matches_jax_brute_force(name):
 def test_wrapper_routes_cpu_tensors_to_twin():
     _, _, _, _, _, tbvh = build_both("tri80", 4)
     o, d, tmin, tmax = (torch.as_tensor(x) for x in rays(30))
-    before = dict(twb.LAUNCHES)
+    before = profiling.counts(twb.LAUNCH)
     t, ids, attr = twb.closest_hit_triangles(tbvh, o, d, tmin, tmax)
     tp, idp, attrp = twb.closest_hit_triangles_plain(tbvh, o, d, tmin, tmax)
     assert torch.equal(t, tp) and torch.equal(ids, idp)
     assert torch.equal(attr, attrp)
     assert torch.equal(twb.any_hit_triangles(tbvh, o, d, 0.0, tmax),
                        twb.any_hit_triangles_plain(tbvh, o, d, 0.0, tmax))
-    assert twb.LAUNCHES == before          # no kernel ran
+    assert profiling.counts(twb.LAUNCH) == before  # no kernel ran
     with pytest.raises(ValueError):
         twb.closest_hit_triangles(tbvh, o.to("meta"), d.to("meta"), tmin,
                                   tmax)
@@ -607,9 +608,9 @@ def emulated(card_walk, monkeypatch):
     monkeypatch.setattr(twb, "_lib", card_walk)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 0}))
-    launches = dict.fromkeys(twb.LAUNCHES, 0)
-    monkeypatch.setattr(twb, "LAUNCHES", launches)
-    return launches
+    monkeypatch.setattr(profiling, "COUNTS",
+                        dict.fromkeys(profiling.COUNTS, 0))
+    return lambda: profiling.counts(twb.LAUNCH)
 
 
 def check_card_walk(tbvh, r, any_hit):
@@ -653,7 +654,7 @@ def test_card_walk_matches_pallas(emulated, name, width):
     hj = jpb.pallas_bvh_closest_hit_triangles(jbvh, *jr, any_hit=True,
                                               interpret=True)
     np.testing.assert_array_equal(occ < BIG, np.asarray(hj.hit))
-    assert emulated == {"closest": 1, "any": 1, "stats_closest": 1,
+    assert emulated() == {"closest": 1, "any": 1, "stats_closest": 1,
                         "stats_any": 1}
 
 
