@@ -52,6 +52,7 @@ def scene_from_numpy(scene, static, device=None):
     as written) and the bilinear patches."""
     device = resolve_device(device)
 
+    n_valid = lambda pool: int(np.asarray(pool.valid).sum())
     tp = scene.tris
     pack = TrianglePack(
         **_fields(tp, ("v0", "e1", "e2", "n_geo", "n0", "n1", "n2",
@@ -59,12 +60,13 @@ def scene_from_numpy(scene, static, device=None):
                   device),
         w6=None if tp.w6 is None else _t(tp.w6, device),
         w4=None if tp.w4 is None else _t(tp.w4, device),
-        n_valid=int(np.asarray(tp.valid).sum()))
+        n_valid=n_valid(tp))
     pool_f = ("material_id", "valid")
     spheres = SpherePool(**_fields(scene.spheres, ("center", "radius")
-                                   + pool_f, device))
+                                   + pool_f, device),
+                         n_valid=n_valid(scene.spheres))
     planes = PlanePool(**_fields(scene.planes, ("origin", "normal") + pool_f,
-                                 device))
+                                 device), n_valid=n_valid(scene.planes))
     materials = MaterialTable(**_fields(
         scene.materials, ("kd", "ks", "kt", "shininess", "ior",
                           "texture_kind", "texture_params",

@@ -225,6 +225,14 @@ def _blpatch_surface(pool: BLPatchPool, o, d, t, bp_id):
             take_rows(pool.material_id, bp_id))
 
 
+def _pick(mask, a, b):
+    """Per lane, the surface values (p, n, geo_n, uv, material id) of a
+    where mask holds, else those of b."""
+    m = mask[:, None]
+    return (*(torch.where(m, x, y) for x, y in zip(a[:4], b[:4])),
+            torch.where(mask, a[4], b[4]))
+
+
 def make_surface(tris: TrianglePack, spheres: SpherePool, planes: PlanePool,
                  o, d, hit: Hit, tri_attr=None,
                  blpatches: BLPatchPool | None = None) -> Surface:
@@ -232,33 +240,34 @@ def make_surface(tris: TrianglePack, spheres: SpherePool, planes: PlanePool,
     type. tri_attr: the traversal's (N, 32) rows, or None to gather
     from the pack; blpatches: the scene's patches, or None."""
     is_tri = hit.prim_type == PRIM_TRI
-    is_sph = hit.prim_type == PRIM_SPHERE
     tri_id = torch.where(is_tri, hit.prim_id, 0)
-    sph_id = torch.where(is_sph, hit.prim_id, 0)
-    pl_id = torch.where(hit.prim_type == PRIM_PLANE, hit.prim_id, 0)
     # miss lanes carry t = _BIG: o + t*d would overflow, and inf forward
     # values NaN the backward pass even where masked
     t_safe = torch.where(hit.hit, hit.t, 1.0)
 
-    tp, tn, tgn, tuv, tm = _tri_surface(tris, o, d, tri_id, rows=tri_attr)
-    sp, sn, sgn, suv, sm = _sphere_surface(spheres, o, d, t_safe, sph_id)
-    pp, pn, pgn, puv, pm = _plane_surface(planes, o, d, t_safe, pl_id)
-
-    it, isp = is_tri[:, None], is_sph[:, None]
-    p = torch.where(it, tp, torch.where(isp, sp, pp))
-    n = torch.where(it, tn, torch.where(isp, sn, pn))
-    gn = torch.where(it, tgn, torch.where(isp, sgn, pgn))
-    uv = torch.where(it, tuv, torch.where(isp, suv, puv))
-    mat = torch.where(is_tri, tm, torch.where(is_sph, sm, pm))
+    tri = _tri_surface(tris, o, d, tri_id, rows=tri_attr)
+    # a pool with no valid primitive (n_valid == 0) has no lane to
+    # shade, so its branch is left out; the lanes that fall through to
+    # the end are misses, pinned below, and carry the material id of
+    # the plane pool's first row whether or not the planes are shaded
+    if spheres.n_valid != 0:
+        is_sph = hit.prim_type == PRIM_SPHERE
+        sph = _sphere_surface(spheres, o, d, t_safe,
+                              torch.where(is_sph, hit.prim_id, 0))
+    if planes.n_valid != 0:
+        pl_id = torch.where(hit.prim_type == PRIM_PLANE, hit.prim_id, 0)
+        rest = _plane_surface(planes, o, d, t_safe, pl_id)
+    else:
+        rest = (0.0, 0.0, 0.0, 0.0, planes.material_id[0])
+    if spheres.n_valid != 0:
+        rest = _pick(is_sph, sph, rest)
+    p, n, gn, uv, mat = _pick(is_tri, tri, rest)
     if blpatches is not None:
         is_bp = hit.prim_type == PRIM_BLPATCH
         bp_id = torch.where(is_bp, hit.prim_id, 0)
-        bp, bn, bgn, buv, bm = _blpatch_surface(blpatches, o, d, t_safe,
-                                                bp_id)
-        ib = is_bp[:, None]
-        p, n = torch.where(ib, bp, p), torch.where(ib, bn, n)
-        gn, uv = torch.where(ib, bgn, gn), torch.where(ib, buv, uv)
-        mat = torch.where(is_bp, bm, mat)
+        p, n, gn, uv, mat = _pick(
+            is_bp, _blpatch_surface(blpatches, o, d, t_safe, bp_id),
+            (p, n, gn, uv, mat))
     # pin missed lanes to benign values (their garbage would NaN
     # gradients through later masked math)
     ok = hit.hit[:, None]

@@ -20,8 +20,11 @@ placed at the port's layer boundaries:
   allocates nothing, launches nothing and never synchronizes.
 - counters are host integers in one registry, COUNTS, always on:
   launch.<kernel>.<mode> (the kernel wrappers' launches), bvh.lanes
-  (lanes handed to the traversal kernels) and sync.<site> (`sync`: each
-  blocking host-device call of the hot path on a CUDA tensor).
+  (lanes handed to the traversal kernels), pool.scanned.<kind> /
+  pool.skipped.<kind> (the ray casts' passes over the sphere and plane
+  pools, run or skipped as empty, on every device) and sync.<site>
+  (`sync`: each blocking host-device call of the hot path on a CUDA
+  tensor).
 
 While a torch profiler records (torch.autograd._profiler_enabled()),
 span and phase also open a record_function range of their name: the

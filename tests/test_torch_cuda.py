@@ -635,3 +635,20 @@ def test_kd_grad_64_card_equals_cpu(cuda, name):
             scene, static, cam, _ = build(name, cfg, device=dev)
         grads.append(fwd_bwd(attach_accel(scene), static, cam, cfg)[1].cpu())
     assert float(grads[0].abs().sum()) > 0 and torch.equal(*grads)
+
+
+@pytest.mark.parametrize("name,mode", [("sponza_proxy", "fit"),
+                                       ("photon_box", "whitted")])
+def test_skipped_pools_give_the_dense_bits_on_card(cuda, name, mode):
+    """At 512x512 on the card, a lit sponza_proxy step (image, kd and v0
+    gradients of sum(hdr)) and a photon_box Whitted frame: skipping the
+    empty sphere and plane pools gives the bits of scanning them
+    (tests/test_torch_pool_skip.py holds it on the CPU)."""
+    from test_torch_pool_skip import (assert_same_bits, dense, render,
+                                      scene_case)
+    scene, static, cam, cfg = scene_case(name, cuda, res=512)
+    with profiling.recording() as sink:
+        got = render(scene, static, cam, cfg, mode)
+    assert not any(k.startswith("pool.scanned.") for k in sink.counts)
+    assert sink.counts["pool.skipped.spheres"] > 0
+    assert_same_bits(got, render(dense(scene), static, cam, cfg, mode))

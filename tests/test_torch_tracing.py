@@ -55,7 +55,10 @@ def test_off_records_nothing_and_shares_one_null_context(glass):
     scene, static, cam = glass
     render_hdr(scene, static, cam, RenderConfig(width=16, height=16,
                                                 trace_depth=1))
-    assert profiling.COUNTS == before                 # no launch, no sync
+    # no launch, no sync: only the pool passes, counted on every device
+    # (the glass scene has no sphere and no plane)
+    moved = {k for k, v in profiling.COUNTS.items() if v != before.get(k, 0)}
+    assert moved == {"pool.skipped.spheres", "pool.skipped.planes"}
     with profiling.span("a"):
         profiling.record("segment_sum", (1, 2, 3))
     assert profiling.SINK is None
