@@ -35,12 +35,21 @@ re-derives the accepted candidates, a fixed chunk of points at a time,
 and sums grad / (pi r'^2) by photon into the powers of the level that
 point used (ops/segment_sum.py, no atomics), so no (N, 27, K) array
 outlives its chunk.
+Each call counts `photon.gathers` and its points in `photon.points`
+and runs in the span `photon.gather`; while a tracer sink is open it
+also hands the sink a "photon_gather" record (utils/profiling.py
+device_record): the number of points, the points themselves ("p", the
+tensor the call was given, not copied), the grid, and on the card the
+call's device time by CUDA events, read after the sink closes. The
+record launches no device work of its own; with no sink open none of
+it runs.
 
 *Build* (`build_grid`, `_auto_radius`): host numpy copied from the JAX
 package, giving the same bytes (stable sort, over-full cells folded
 with RandomState(0xC5E168), RandomState(0)'s subsample, the coarse
 level). `build_photon_maps` emits batches until each map's target is
-stored, scales powers by 1 / emitted and builds the grids.
+stored, scales powers by 1 / emitted and builds the grids; the maps
+keep the photons they were built from (`PhotonMaps.photons`).
 """
 
 from __future__ import annotations
@@ -115,13 +124,21 @@ class PhotonGrid:
 class PhotonMaps:
     global_map: Optional[PhotonGrid]
     caustic_map: Optional[PhotonGrid]
+    # each map's photons as build_photon_maps stored them, before its
+    # grid's fold: {"global", "caustic": (position, incoming direction,
+    # power over the photons emitted) host float32 arrays, or None};
+    # None where the maps came from elsewhere (a checkpoint, interop)
+    photons: Optional[dict] = dataclasses.field(default=None,
+                                                compare=False, repr=False)
 
     def replace(self, **kw) -> "PhotonMaps":
         return dataclasses.replace(self, **kw)
 
     def to(self, device) -> "PhotonMaps":
-        return PhotonMaps(*(None if g is None else g.to(device)
-                            for g in (self.global_map, self.caustic_map)))
+        return self.replace(**{
+            f: None if g is None else g.to(device)
+            for f, g in (("global_map", self.global_map),
+                         ("caustic_map", self.caustic_map))})
 
 
 def _hash_cells(cells: torch.Tensor, table_size: int) -> torch.Tensor:
@@ -357,11 +374,19 @@ def grid_irradiance(grid: PhotonGrid, p: torch.Tensor, n: torch.Tensor,
     knn photons within its radius and the coarse one reaches knn.
     Points go `chunk` at a time (default: gather_chunk); neither the
     answer nor its gradient depends on it. Differentiable in grid.power
-    and grid.coarse.power only."""
+    and grid.coarse.power only. Counted, spanned and, while a sink is
+    open, recorded as the module's docstring says."""
     if chunk is None:
         chunk = gather_chunk(grid, p.device)
     coarse_power = None if grid.coarse is None else grid.coarse.power
-    return _Irradiance.apply(grid, chunk, p, n, grid.power, coarse_power)
+    profiling.count("photon.gathers")
+    profiling.count("photon.points", p.shape[0])
+    with profiling.span("photon.gather"), \
+            profiling.device_record("photon_gather", p) as rec:
+        if rec is not None:
+            rec.update(points=p.shape[0], p=p, grid=grid)
+        return _Irradiance.apply(grid, chunk, p, n, grid.power,
+                                 coarse_power)
 
 
 def irradiance_estimate(maps: PhotonMaps, p: torch.Tensor,
@@ -590,7 +615,8 @@ def build_photon_maps(scene: Scene, static: SceneStatic, cfg: RenderConfig,
     498-602): per map, batches from each directional-area light until
     it has stored the target (or cfg.photon_max_batches), the stored
     photons truncated to target * emitters, powers scaled by
-    1 / emitted, the auto radius, and the grids on the scene's device.
+    1 / emitted, the auto radius, and the grids on the scene's device;
+    the maps keep those photons (PhotonMaps.photons).
     Batches hold 65536 photons on the card and 10000 on the CPU. The
     maps are constants of the scene's parameters: photons come back to
     the host between batches, so no gradient flows through emission,
@@ -615,11 +641,13 @@ def build_photon_maps(scene: Scene, static: SceneStatic, cfg: RenderConfig,
                                  device=gen.device))
     n_batches = 0
     maps = {}
+    kept = {}
     stats = {}
     for caustic, target in ((False, cfg.photons_per_light),
                             (True, cfg.caustic_photons_per_light)):
         name = "caustic" if caustic else "global"
         stats[name] = dict(emitted=0, stored=0, bounces=0)
+        kept[name] = None
         if target <= 0:
             maps[caustic] = None
             continue
@@ -663,6 +691,7 @@ def build_photon_maps(scene: Scene, static: SceneStatic, cfg: RenderConfig,
         pos = np.concatenate(all_pos)[:keep]
         dirs = np.concatenate(all_dir)[:keep]
         pows = np.concatenate(all_pow)[:keep] / max(total_emitted, 1)
+        kept[name] = (pos, dirs, pows)
         radius = _auto_radius(pos, cfg.photon_samples,
                               cfg.photon_grid_max_per_cell)
         maps[caustic] = build_grid(
@@ -671,5 +700,6 @@ def build_photon_maps(scene: Scene, static: SceneStatic, cfg: RenderConfig,
             coarse_factor=(cfg.photon_coarse_factor
                            if cfg.photon_coarse_factor > 0 else None),
             device=dev)
-    pm = PhotonMaps(global_map=maps[False], caustic_map=maps[True])
+    pm = PhotonMaps(global_map=maps[False], caustic_map=maps[True],
+                    photons=kept)
     return (pm, stats) if return_stats else pm

@@ -37,7 +37,10 @@ setting SINK). While it is open and not paused it gathers the spans,
 the counters' increments, and what the path hands to `record`: each
 segment_sum call's (terms, columns, rows) and each integrate's
 RenderStats ray counters (primary, secondary, shadow) as the 0-d device
-tensors they are, read only after the sink closes.
+tensors they are, read only after the sink closes. `device_record`
+hands it a dict that the block fills, and on the card times the block
+on the device by a pair of CUDA events, resolved after the sink closes
+(`device_ms`); the photon gather's "photon_gather" record is one.
 """
 
 from __future__ import annotations
@@ -177,6 +180,55 @@ def record(kind: str, value) -> None:
     """Hand `value` to the open sink, if any, under `kind`."""
     if SINK is not None:
         SINK.record(kind, value)
+
+
+class _DeviceRecord:
+    __slots__ = ("kind", "sink", "rec", "cuda")
+
+    def __init__(self, kind: str, sink: Sink, cuda: bool):
+        self.kind, self.sink, self.cuda = kind, sink, cuda
+        self.rec = {}
+
+    def __enter__(self):
+        if self.cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.rec["events"] = (start,)
+        return self.rec
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.rec["events"] += (end,)
+        self.sink.record(self.kind, self.rec)
+        return False
+
+
+def device_record(kind: str, on):
+    """A context manager that yields a dict for the block to fill and
+    hands it to the open sink under `kind` at its end; where `on` (a
+    tensor or a device) is a CUDA one, the dict's "events" are a start
+    and an end torch.cuda.Event recorded on the current stream around
+    the block, so `device_ms(rec)` reads the block's device time once
+    the work has finished (after the sink closes: reading it inside
+    would wait for the card). With no sink open, or a paused one, it
+    yields None and creates nothing: no event, no dict."""
+    sink = SINK
+    if sink is None or sink.paused():
+        return _NULL
+    cuda = on.is_cuda if isinstance(on, torch.Tensor) else on.type == "cuda"
+    return _DeviceRecord(kind, sink, cuda)
+
+
+def device_ms(rec: dict) -> Optional[float]:
+    """Milliseconds between a device_record's two events (None without
+    them, as off the card); waits for the end event."""
+    events = rec.get("events")
+    if events is None or len(events) != 2:
+        return None
+    events[1].synchronize()
+    return events[0].elapsed_time(events[1])
 
 
 def declare(prefix: str, names) -> None:
