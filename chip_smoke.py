@@ -57,7 +57,10 @@ kd, peak memory, launches, and the gather's device time against the
 traversal's (torch.profiler); (e) that render at 64², card against CPU
 by tests/test_golden.py's bar; (f) `cli render` with --photons,
 --caustic-photons, --stats and --visualize-photons through cli.render
-(built=), and the glassless box with --photons (K2's shadow rays).
+(built=), and the glassless box with --photons (K2's shadow rays); (g)
+the gather kernel (csrc/photon_gather.cu) against its plain twin on
+both maps at 262,144 level-0 points by torch.equal, timed by CUDA events
+beside its bytes bound and the twin's time.
 Phase 12 runs the rest of the port on lit sponza_proxy at 512x512, depth
 4: (a) 16 curved bilinear patches in a material of their own, the patch
 hits of the primary rays, the forward and fwd+bwd w.r.t. kd and w.r.t.
@@ -93,9 +96,10 @@ torch.equal, differences traced as in (d) to the ops
 GRAD_ROUNDED_BY_SCENE names; (f) the photon path card against CPU:
 photon tracing on 11(c)'s uniforms with the transcendentals on the CPU,
 11(e)'s render and its photon-power gradient by torch.equal (or traced
-to the ops PHOTON_ROUNDED names), and that gradient at two forward
-chunks; (g) the segment-sum kernel (csrc/segment_sum.cu, the gradient
-scatters) against its plain version and against itself, by
+to the ops PHOTON_ROUNDED names), and that gradient after the gather
+kernel's forward and after its plain twin's; (g) the segment-sum kernel
+(csrc/segment_sum.cu, the gradient scatters) against its plain version
+and against itself, by
 torch.equal, at the kd backward of the main step, a single run of all
 its terms, ReattachRows' backward, a photon backward level, a run of
 2^21 terms, random ids on 2^19 + 1 rows at 29 columns and runs of 1-64
@@ -154,6 +158,13 @@ PHOTON_CFG = dict(photons_per_light=PHOTONS, caustic_photons_per_light=PHOTONS,
 PHOTON_RES = 512           # phase 11's renders, at trace depth 10
 PHOTON_CPU_RES = 64        # phase 11(e)'s card-vs-CPU image
 PHOTON_GATHER_POINTS = 65_536
+# phase 11(g): the gather kernel at photon_box_render's level-0 size, the
+# first diffuse hits of PHOTON_KERNEL_RES^2 primary rays
+PHOTON_KERNEL_POINTS = 262_144
+PHOTON_KERNEL_RES = 640
+PHOTON_KERNEL_REPS = 20
+# 11(b), 11(g): candidates a chunk of the plain twin holds on the card
+PHOTON_TWIN_CANDIDATES = 1 << 25
 PHOTON_TRACE_N = 65_536
 PHOTON_REPS = 3
 SPHERE_RINGS = 71          # the glass sphere: 4 x 71 x 70 = 19,880 triangles
@@ -473,12 +484,14 @@ def phase_device():
 def phase_build():
     """Phase 2: every kernel source built at once, one nvcc each, and
     loaded; the native SAH builder."""
-    from cse168_raytracer_tpu_torch.ops import (binary_bvh, cuda_build, sah,
+    from cse168_raytracer_tpu_torch.ops import (binary_bvh, cuda_build,
+                                                photon_gather, sah,
                                                 segment_sum, tri_blocks,
                                                 wide_bvh)
     t0 = time.perf_counter()
     cuda_build.build_all()
-    for mod in (wide_bvh, binary_bvh, tri_blocks, segment_sum):
+    for mod in (wide_bvh, binary_bvh, tri_blocks, segment_sum,
+                photon_gather):
         mod._kernel_lib()
     build_s = time.perf_counter() - t0
     log(f"[2 build] {len(cuda_build.SOURCES)} kernel sources built and "
@@ -491,17 +504,20 @@ def phase_build():
         for name, k in ptxas_kernels(info["log"]).items():
             ptxas[name] = k
             log(f"   ptxas: {name}: {k['registers']} registers, "
-                f"{k['smem']} bytes static shared memory, spill stores "
-                f"{k['spill_stores']} bytes, loads {k['spill_loads']} bytes")
+                f"{k['smem']} bytes static shared memory, stack frame "
+                f"{k['stack']} bytes, spill stores {k['spill_stores']} "
+                f"bytes, loads {k['spill_loads']} bytes")
     # the card walks' twelve instantiations (K1-K4's eight, K5's four),
-    # K6's three kernels and the segmented sum's five, each reported and
-    # spilling nothing: spills would put their operands in local memory
+    # K6's three kernels, the segmented sum's five and the photon
+    # gather's two (candidates a lane), each reported and spilling
+    # nothing: spills would put their operands in local memory
     names = [f"traverse_warp W={w} {mode}{stats}" for w in (4, 8)
              for mode in ("closest", "any") for stats in ("", " stats")]
     names += [f"traverse_binary_warp {mode}{stats}"
               for mode in ("closest", "any") for stats in ("", " stats")]
     for name in names + ["tri_blocks_cull", "tri_blocks_test",
-                         "tri_blocks_finish", *SEGSUM_KERNELS]:
+                         "tri_blocks_finish", *SEGSUM_KERNELS,
+                         *PHOTON_GATHER_KERNELS]:
         k = ptxas.get(name)
         if k is None:
             raise RuntimeError(f"phase 2: nvcc's report has no {name}")
@@ -509,6 +525,11 @@ def phase_build():
             raise RuntimeError(f"phase 2: {name} spills "
                                f"{k['spill_stores']} bytes of stores "
                                f"and {k['spill_loads']} of loads")
+        # the gather keeps its candidates in registers: a stack frame
+        # would be an array left in local memory
+        if name in PHOTON_GATHER_KERNELS and k["stack"]:
+            raise RuntimeError(f"phase 2: {name} keeps {k['stack']} bytes "
+                               f"in local memory")
     sah.load_native()
     log(f"[2 build] native SAH builder {sah.native_library_path()} loaded")
     return build_s, ptxas
@@ -517,13 +538,18 @@ def phase_build():
 # csrc/segment_sum.cu's kernels
 SEGSUM_KERNELS = ("segsum_hist", "segsum_sort_pass", "segsum_runs",
                   "segsum_tiles", "segsum_short")
+# csrc/photon_gather.cu's instantiations, by candidates a lane
+PHOTON_GATHER_KERNELS = tuple(f"photon_gather J={j}"
+                              for j in (32, 64))
 
 
 def ptxas_kernels(text):
-    """{kernel: {"registers", "smem", "spill_stores", "spill_loads"}}
+    """{kernel: {"registers", "smem", "stack", "spill_stores",
+    "spill_loads"}}
     from nvcc's -Xptxas -v report; the kernels named as "traverse_warp
     W=4 closest", "traverse_warp W=8 any stats", "traverse_binary_warp
-    any stats", "tri_blocks_test" or "segsum_short"."""
+    any stats", "tri_blocks_test", "segsum_short" or "photon_gather
+    J=32" (its candidates a lane)."""
     import re
     out, cur = {}, None
     for line in text.splitlines():
@@ -543,16 +569,20 @@ def ptxas_kernels(text):
                        + (" stats" if b.group(2) == "1" else ""))
             elif re.search(r"tri_blocks_(cull|test|finish)", cur):
                 cur = re.search(r"tri_blocks_(cull|test|finish)", cur).group(0)
+            elif re.search(r"photon_gatherILi(\d+)E", cur):
+                cur = "photon_gather J=" + re.search(
+                    r"photon_gatherILi(\d+)E", cur).group(1)
             elif re.search(r"segsum_(hist|sort_pass|runs|tiles|short)", cur):
                 cur = re.search(r"segsum_(hist|sort_pass|runs|tiles|short)",
                                 cur).group(0)
-            out.setdefault(cur, {"registers": 0, "smem": 0,
+            out.setdefault(cur, {"registers": 0, "smem": 0, "stack": 0,
                                  "spill_stores": 0, "spill_loads": 0})
             continue
         if cur is None:
             continue
         for key, pat in (("registers", r"Used (\d+) registers"),
                          ("smem", r"(\d+) bytes smem"),
+                         ("stack", r"(\d+) bytes stack frame"),
                          ("spill_stores", r"(\d+) bytes spill stores"),
                          ("spill_loads", r"(\d+) bytes spill loads")):
             m = re.search(pat, line)
@@ -1946,7 +1976,7 @@ def phase_photon_gather(card, maps, p, n):
     out = {}
     for name in ("global_map", "caustic_map"):
         grid, grid_c = getattr(maps, name), getattr(maps_cpu, name)
-        chunk = ph.gather_chunk(grid, p.device)
+        chunk = twin_chunk(grid)
         t0 = time.perf_counter()
         card_out = ph.gather_levels(grid, p, nu, grid.power,
                                     grid.coarse.power, chunk)
@@ -1955,7 +1985,7 @@ def phase_photon_gather(card, maps, p, n):
         t0 = time.perf_counter()
         cpu_out = ph.gather_levels(grid_c, p.cpu(), nu.cpu(), grid_c.power,
                                    grid_c.coarse.power,
-                                   ph.gather_chunk(grid_c, cpu))
+                                   ph.gather_chunk(grid_c))
         cpu_s = time.perf_counter() - t0
         irr, irr_c = card_out[0].cpu(), cpu_out[0]
         for a, b, what in zip(card_out[1:], cpu_out[1:],
@@ -1979,6 +2009,136 @@ def phase_photon_gather(card, maps, p, n):
     log(f"[11b gather] irradiance_estimate (both maps) on the "
         f"{p.shape[0]} points: {out['ms']:.3f} ms (CUDA events, "
         f"{PHOTON_REPS} runs after a warm-up); card {card}")
+    return out
+
+
+def twin_chunk(grid):
+    """Points a chunk of the plain twin holds on the card."""
+    return max(1, PHOTON_TWIN_CANDIDATES // (27 * grid.max_per_cell))
+
+
+def max_abs_diff(a, b):
+    """The largest |a - b| of two tensors of one shape, in float64; 0
+    where they are equal (infinities included)."""
+    import torch
+    a, b = a.double(), b.double()
+    d = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
+def distinct_photons(p, pos, weight, radius):
+    """Photons of positive weight at pos (M, 3) within `radius` of at
+    least one point of p (N, 3), each counted once: the rows a gather
+    must read from device memory at least once (portbench's
+    photon_gather_roofline.within, counted by photon, not by point)."""
+    import torch
+    from portbench.reference.photon import cell_key, near
+    pos = pos[weight > 0].float()
+    if p.shape[0] == 0 or pos.shape[0] == 0:
+        return 0
+    r = torch.tensor(radius, dtype=torch.float32, device=p.device)
+
+    def cells(x):
+        return torch.floor(x / r).to(torch.int64)
+    keys, order = torch.sort(cell_key(cells(pos)))
+    pos = pos[order]
+    per = int(torch.unique_consecutive(keys, return_counts=True)[1].max())
+    chunk = max(1, (1 << 22) // (27 * per))
+    seen = torch.zeros(pos.shape[0], dtype=torch.bool, device=p.device)
+    for c0 in range(0, p.shape[0], chunk):
+        x = p[c0:c0 + chunk].float()
+        idx, ok = near(keys, cells(x), per)
+        d = pos[idx] - x[:, None, :]
+        d2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+            + d[..., 2] * d[..., 2]
+        seen[idx[ok & (d2 < r * r)]] = True
+    return int(seen.sum())
+
+
+def gather_least_bytes(p, grid):
+    """(the least device-memory bytes of a gather at points p over
+    `grid`: each point's p and n in and irradiance out, each photon a
+    point needs read once however many points need it (the fine level's
+    within its radius of any point, the coarse level's within its radius
+    of any point whose fine level weighs under knn); and the bytes of
+    portbench's photon_gather_roofline, which counts a photon once for
+    each point that needs it)."""
+    from portbench.metrics.photon_gather_roofline import (gather_bytes,
+                                                          least_photons,
+                                                          within)
+    photons = distinct_photons(p, grid.pos, grid.weight, float(grid.radius))
+    if grid.coarse is not None:
+        c = grid.coarse
+        need = within(p, grid.pos, grid.weight, float(grid.radius))[1] \
+            < grid.knn
+        photons += distinct_photons(p[need], c.pos, c.weight, float(c.radius))
+    n = p.shape[0]
+    return gather_bytes(n, photons), gather_bytes(n, least_photons(p, grid))
+
+
+def phase_photon_kernel(card, scene, static, cam, maps):
+    """11(g): the gather kernel (csrc/photon_gather.cu) against its plain
+    twin (ops/photon.py gather_levels) on the card, on both maps, at
+    photon_box_render's level-0 size (PHOTON_KERNEL_POINTS diffuse hits):
+    irradiance, fine r'^2 and level choice by torch.equal, the coarse
+    r'^2 where the coarse level is used, and the largest difference of
+    any of them; the kernel's time by CUDA events beside its bound (the
+    least device-memory bytes over the HBM rate, each needed photon read
+    once: gather_least_bytes), its share of portbench's
+    photon_gather_roofline count (a photon read once for each point that
+    needs it: a read count, not a roofline, since a map fits in L2), and
+    the twin's time."""
+    import torch
+    from cse168_raytracer_tpu_torch.core.vecmath import safe_normalize
+    from cse168_raytracer_tpu_torch.ops import photon as ph
+    from cse168_raytracer_tpu_torch.ops import photon_gather as pg
+    from cse168_raytracer_tpu_torch.utils import profiling
+    p, n = diffuse_points(scene, static, cam, PHOTON_KERNEL_POINTS,
+                          res=PHOTON_KERNEL_RES)
+    n = safe_normalize(n)
+    out = {"launches": 0, "max_abs_err": 0.0}
+    for name in ("global_map", "caustic_map"):
+        grid = getattr(maps, name)
+        args = (grid, p, n, grid.power, grid.coarse.power)
+        chunk = twin_chunk(grid)
+        before = profiling.counts(pg.LAUNCH)["forward"]
+        got = pg.gather(*args)
+        torch.cuda.synchronize()
+        out["launches"] += profiling.counts(pg.LAUNCH)["forward"] - before
+        want = ph.gather_levels(*args, chunk)
+        use_c = want[3]
+        same = [torch.equal(got[0], want[0]), torch.equal(got[1], want[1]),
+                torch.equal(got[3], use_c),
+                torch.equal(got[2][use_c], want[2][use_c])]
+        err = max(max_abs_diff(got[0], want[0]),
+                  max_abs_diff(got[1], want[1]),
+                  max_abs_diff(got[2][use_c], want[2][use_c]))
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        if not all(same):
+            raise AssertionError(f"11g {name}: kernel and twin differ "
+                                 f"(irradiance, r'^2, level, coarse r'^2: "
+                                 f"{same}; max abs diff {err})")
+        ms = time_cuda(lambda: pg.gather(*args), PHOTON_KERNEL_REPS)
+        twin_ms = time_cuda(lambda: ph.gather_levels(*args, chunk),
+                            PHOTON_REPS)
+        with torch.no_grad():
+            least, reads = gather_least_bytes(p, grid)
+        bound_ms = least / HBM_BYTES_S * 1e3
+        reads_ms = reads / HBM_BYTES_S * 1e3
+        out[name] = dict(ms=ms, plain_ms=twin_ms, bound_ms=bound_ms,
+                         bound_by="bytes", least_bytes=least,
+                         read_count_bytes=reads, read_count_ms=reads_ms,
+                         coarse_points=int(use_c.sum()))
+        log(f"[11g gather kernel] {name}: {p.shape[0]} level-0 points, "
+            f"max_per_cell {grid.max_per_cell}, coarse level used at "
+            f"{int(use_c.sum())}: kernel = twin by torch.equal (max abs "
+            f"diff {err}); kernel {ms:.4f} ms (CUDA events, "
+            f"{PHOTON_KERNEL_REPS} runs), bound {bound_ms:.6f} ms ("
+            f"{least / 1e6:.2f} MB, bytes: each needed photon once), share "
+            f"{100 * bound_ms / ms:.3f}%; share of the per-point read count "
+            f"(photon_gather_roofline's, {reads / 1e6:.1f} MB at the HBM "
+            f"rate) {100 * reads_ms / ms:.2f}%; twin {twin_ms:.3f} ms "
+            f"({chunk} points a chunk); card {card}")
     return out
 
 
@@ -2084,17 +2244,22 @@ def device_split(events, mark):
 def phase_photon_render(device, card, scene, static, cam, maps, p, n):
     """11(d): the photon-mapped render at PHOTON_RES, depth 10: forward,
     fwd+bwd w.r.t. the stored-power gain and w.r.t. kd, peak memory,
-    launches, and the gather's device time against K1/K2's."""
+    the wide tree's and the gather kernel's launches, and the gather's
+    device time against K1/K2's."""
     import torch
     from cse168_raytracer_tpu_torch.config import RenderConfig
     from cse168_raytracer_tpu_torch.ops import photon as ph
+    from cse168_raytracer_tpu_torch.ops import photon_gather as pg
     from cse168_raytracer_tpu_torch.ops import wide_bvh as wb
     from cse168_raytracer_tpu_torch.render import integrator
     from cse168_raytracer_tpu_torch.render.integrator import render_hdr
+    from cse168_raytracer_tpu_torch.utils import profiling
     cfg = RenderConfig(width=PHOTON_RES, height=PHOTON_RES, trace_depth=10)
     lit = scene.replace(photons=maps)
     out = {}
     before = launch_counts(wb)
+    zero_launches(pg)
+    gathers = profiling.counts("photon").get("gathers", 0)
     torch.cuda.reset_peak_memory_stats(device)
     with torch.no_grad():
         hdr, stats = render_hdr(lit, static, cam, cfg)
@@ -2105,6 +2270,14 @@ def phase_photon_render(device, card, scene, static, cam, maps, p, n):
             lambda: render_hdr(scene, static, cam, cfg), PHOTON_REPS,
             warm=False)
     out["fwd_launches"] = launches_since(wb, before)
+    # the forwards with the maps: one render and PHOTON_REPS timed ones
+    frames = 1 + PHOTON_REPS
+    out["gather_launches"] = launch_counts(pg)["forward"]
+    out["gather_launches_a_frame"] = out["gather_launches"] / frames
+    gathers = profiling.counts("photon").get("gathers", 0) - gathers
+    if out["gather_launches"] != gathers or gathers == 0:
+        raise AssertionError(f"11d: {out['gather_launches']} gather kernel "
+                             f"launches for {gathers} gathers")
     if not bool(torch.isfinite(hdr).all()) or not bool(
             (hdr >= base - 1e-6).all()) or not float(hdr.sum()) > float(
             base.sum()):
@@ -2125,6 +2298,7 @@ def phase_photon_render(device, card, scene, static, cam, maps, p, n):
         raise AssertionError("11d: kd gradient non-finite")
     out["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
     out["launches"] = launches_since(wb, before)
+    out["all_gather_launches"] = launch_counts(pg)["forward"]
     log(f"[11d render] {PHOTON_RES}x{PHOTON_RES}, depth 10, both maps: "
         f"forward {out['fwd_ms']:.3f} ms (without the maps "
         f"{out['plain_fwd_ms']:.3f} ms; CUDA events, {PHOTON_REPS} runs); "
@@ -2133,6 +2307,9 @@ def phase_photon_render(device, card, scene, static, cam, maps, p, n):
         f"{rays} rays; peak device memory {out['peak_mib']:.1f} MiB; "
         f"wide-tree launches of (d)'s {2 * PHOTON_REPS + 2} forwards "
         f"{out['fwd_launches']}, of all (d)'s renders {out['launches']}; "
+        f"gather kernel launches of the {frames} forwards with the maps "
+        f"{out['gather_launches']} ({out['gather_launches_a_frame']:g} a "
+        f"frame), of all (d)'s renders {out['all_gather_launches']}; "
         f"image mean {float(hdr.mean()):.6g} (without "
         f"the maps {float(base.mean()):.6g}); card {card}")
 
@@ -2298,6 +2475,7 @@ def phase_photons(device, card):
     maps, build = phase_photon_build(device, card, scene, static)
     p, n = diffuse_points(scene, static, cam, PHOTON_GATHER_POINTS)
     gather = phase_photon_gather(card, maps, p, n)
+    kernel = phase_photon_kernel(card, scene, static, cam, maps)
     cpu = torch.device("cpu")
     cpu_scene, cpu_static, cpu_cam = photon_scene(cpu)
     trace = phase_photon_trace(device, card, scene, static, cpu_scene,
@@ -2317,8 +2495,8 @@ def phase_photons(device, card):
         f"{build['launches']}, (d) {render['launches']}, (f) "
         f"{ {n: r['launches'] for n, r in cli_runs.items()} }; total "
         f"{launches}; phase 11 took {time.perf_counter() - t_phase:.1f} s")
-    return dict(build=build, gather=gather, trace=trace, render=render,
-                match=match, cli=cli_runs, launches=launches,
+    return dict(build=build, gather=gather, kernel=kernel, trace=trace,
+                render=render, match=match, cli=cli_runs, launches=launches,
                 maps_cpu=maps_cpu)
 
 
@@ -3211,7 +3389,7 @@ def photon_power_grads(scene, static, cam, cfg, maps):
 # 13(f)'s allowance: transcendentals that may round photon_box's photon
 # render or its photon-power gradient differently on the card
 PHOTON_ROUNDED = set()
-PHOTON_GRAD_CHUNK = 1 << 21   # 13(f)'s second forward chunk budget
+PHOTON_GRAD_CHUNK = 1 << 21   # 13(f)'s twin forward, its chunk budget
 
 
 def phase_photon_bits(device, card, photons):
@@ -3222,8 +3400,9 @@ def phase_photon_bits(device, card, photons):
     PHOTON_CPU_RES, depth 10, with the same maps: torch.equal, or every
     differing pixel traced to a transcendental PHOTON_ROUNDED names;
     (iii) the photon-power gradient of that render (both maps, both
-    levels): the same; (iv) that gradient on the card at PHOTON_RES at
-    two forward chunks: torch.equal. Returns the largest photon
+    levels): the same; (iv) that gradient on the card at PHOTON_RES
+    after the gather kernel's forward and after its plain twin's:
+    torch.equal. Returns the largest photon
     backward segment_sum call of (iv), for 13(g)."""
     import torch
     from cse168_raytracer_tpu_torch.config import RenderConfig
@@ -3303,31 +3482,33 @@ def phase_photon_bits(device, card, photons):
         f"render: entries differing {diff}"
         + (f", traced to {row['ops']}" if row["ops"] else
            ": torch.equal holds") + f"; CPU {cpu_s:.1f} s")
-    # (iv) at PHOTON_RES on the card, two forward chunks; keep the
-    # largest photon backward segment_sum call for 13(g)
+    # (iv) at PHOTON_RES on the card, after the kernel's forward and
+    # after the plain twin's; keep the largest photon backward
+    # segment_sum call for 13(g)
+    from cse168_raytracer_tpu_torch.ops import photon_gather as pg
     big = RenderConfig(width=PHOTON_RES, height=PHOTON_RES, trace_depth=10)
     first = []
     level = record_segment_sum(ph, lambda: first.extend(
         photon_power_grads(scene, static, cam, big, maps)))
-    saved = dict(ph._CHUNK_CANDIDATES)
-    ph._CHUNK_CANDIDATES["cuda"] = PHOTON_GRAD_CHUNK
+    chunk = PHOTON_GRAD_CHUNK // (27 * maps.global_map.max_per_cell)
+    kernel = pg.gather
+    pg.gather = lambda grid, p, n, power, coarse_power: ph.gather_levels(
+        grid, p, n, power, coarse_power, chunk)
     try:
         second = photon_power_grads(scene, static, cam, big, maps)
     finally:
-        ph._CHUNK_CANDIDATES.update(saved)
-    chunks = (saved["cuda"] // (27 * maps.global_map.max_per_cell),
-              PHOTON_GRAD_CHUNK // (27 * maps.global_map.max_per_cell))
+        pg.gather = kernel
     diff = {k: count_differ(a, b) for k, a, b in zip(labels, first, second)}
-    out["chunks"] = diff
+    out["twin"] = diff
     log(f"[13f photons] the photon-power gradient at {PHOTON_RES}x"
-        f"{PHOTON_RES}, depth 10, at forward chunks of {chunks[0]} and "
-        f"{chunks[1]} points (backward chunk "
+        f"{PHOTON_RES}, depth 10, after the kernel's forward and after the "
+        f"plain twin's ({chunk} points a chunk; backward chunk "
         f"{ph.backward_chunk(maps.global_map)}): entries differing {diff}; "
         f"phase 13(f) took {time.perf_counter() - t_phase:.1f} s; card "
         f"{card}")
     if any(diff.values()):
-        raise AssertionError("13f: the photon-power gradient depends on the "
-                             "forward chunk")
+        raise AssertionError("13f: the photon-power gradient differs "
+                             "between the kernel's forward and the twin's")
     return out, level
 
 
@@ -3565,6 +3746,7 @@ def main():
     rest = phase_patches_and_parallel(device, card, photons["build"]["stats"])
     rounding = phase_rounding(device, card, main_run, photons)
     import torch
+    from cse168_raytracer_tpu_torch.utils import profiling
     src = "cse168_raytracer_tpu_torch/csrc/traverse_wide.cu"
     replaces = "cse168_raytracer_tpu/ops/pallas_bvh.py:1056"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "rays", "plain_rays")
@@ -3659,6 +3841,19 @@ def main():
          "device_ops_a_call": {k: r["launches"] for k, r in
                                rounding["segment_sum"].items()},
          **regs(*SEGSUM_KERNELS, prefix="")},
+        {"name": "photon_gather, the hashed-grid k-NN irradiance gather "
+                 "of both levels, timed at photon_box_render's level 0 "
+                 "(global map)", "route": "cuda",
+         "source": "cse168_raytracer_tpu_torch/csrc/photon_gather.cu",
+         "replaces": "no TPU kernel: cse168_raytracer_tpu/ops/photon.py:241 "
+                     "_gather_level (XLA's), a kernel of the port alone",
+         "launches": photons["render"]["gather_launches"],
+         "launches_a_frame": photons["render"]["gather_launches_a_frame"],
+         "max_abs_err": photons["kernel"]["max_abs_err"], "library_ms": None,
+         **{k: photons["kernel"]["global_map"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "read_count_ms")},
+         **regs(*PHOTON_GATHER_KERNELS, prefix="")},
     ]
     a, b = (cli_runs[("sponza_proxy", x)] for x in ("a", "b"))
     log(f"[summary] segment_sum at the kd backward: {seg['ms']:.4f} ms, "

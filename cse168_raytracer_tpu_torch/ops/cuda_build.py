@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 # every kernel source of the port
 SOURCES = ("traverse_wide.cu", "traverse_binary.cu", "tri_blocks.cu",
-           "segment_sum.cu")
+           "segment_sum.cu", "photon_gather.cu")
 
 # the plain builds (no `defines`) this process used: {source: {"built",
 # "log", "path"}}, "built" False where the library was already built;

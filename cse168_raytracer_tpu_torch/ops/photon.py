@@ -30,11 +30,14 @@ candidates (the counts and the power) are vecmath.sum_fixed, one order
 on every device. Only the stored powers get a gradient: distances feed
 masks alone and r'^2 is detached, as in the JAX function.
 `_Irradiance` is its autograd.Function: the forward runs without grad
-and keeps per point only (p, n, r'^2, level), and the backward
-re-derives the accepted candidates, a fixed chunk of points at a time,
-and sums grad / (pi r'^2) by photon into the powers of the level that
-point used (ops/segment_sum.py, no atomics), so no (N, 27, K) array
-outlives its chunk.
+and keeps per point only (p, n, r'^2, level). On CPU tensors the
+forward is `gather_levels`, the plain PyTorch twin, a chunk of points at
+a time; on CUDA tensors it is one launch of csrc/photon_gather.cu
+(ops/photon_gather.py), which gives the twin's bits, or it raises. The
+backward re-derives the accepted candidates, a fixed chunk of points at
+a time, and sums grad / (pi r'^2) by photon into the powers of the
+level that point used (ops/segment_sum.py, no atomics), so no (N, 27,
+K) array outlives its chunk.
 Each call counts `photon.gathers` and its points in `photon.points`
 and runs in the span `photon.gather`; while a tracer sink is open it
 also hands the sink a "photon_gather" record (utils/profiling.py
@@ -76,6 +79,7 @@ from cse168_raytracer_tpu_torch.models.lights import (LIGHT_DIRECTIONAL_AREA,
                                                       sample_photon_direction)
 from cse168_raytracer_tpu_torch.models.scene import Scene, SceneStatic
 from cse168_raytracer_tpu_torch.models.textures import diffuse_color
+from cse168_raytracer_tpu_torch.ops import photon_gather
 from cse168_raytracer_tpu_torch.ops.segment_sum import segment_sum
 from cse168_raytracer_tpu_torch.ops.shading import trace_closest
 from cse168_raytracer_tpu_torch.utils import profiling
@@ -84,9 +88,10 @@ _H1, _H2, _H3 = 73856093, 19349663, 83492791  # classic spatial-hash primes
 _U32 = 0xFFFFFFFF
 _OFFS = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1],
                              indexing="ij"), axis=-1).reshape(27, 3)
-# candidates (points x 27 x max_per_cell) a gather chunk holds: ~60
-# bytes each while the chunk is alive
-_CHUNK_CANDIDATES = {"cuda": 1 << 25, "cpu": 1 << 20}
+# candidates (points x 27 x max_per_cell) a chunk of the plain gather
+# (gather_levels, the CPU's forward) holds: ~60 bytes each while the
+# chunk is alive
+_CHUNK_CANDIDATES = 1 << 20
 # the backward's chunk, the same on every device: its chunks' sums are
 # added one after another, so the chunk is part of the gradient's order
 _BACKWARD_CANDIDATES = 1 << 24
@@ -284,13 +289,12 @@ def _accepted(grid: PhotonGrid, p: torch.Tensor, n: torch.Tensor,
     return idx, in_r & (d2 < r2[:, None]) & facing
 
 
-def gather_chunk(grid: PhotonGrid, device: torch.device) -> int:
-    """Points a forward gather chunk of `grid` holds on `device`: a
-    fixed candidate budget per device type. Neither the irradiance nor
-    the gradient depends on it: each point's sums are its own, and the
+def gather_chunk(grid: PhotonGrid) -> int:
+    """Points a chunk of the plain gather (gather_levels) of `grid`
+    holds: a fixed candidate budget. Neither the irradiance nor the
+    gradient depends on it: each point's sums are its own, and the
     backward takes its own chunk (backward_chunk)."""
-    budget = _CHUNK_CANDIDATES.get(device.type, _CHUNK_CANDIDATES["cpu"])
-    return max(1, budget // (27 * grid.max_per_cell))
+    return max(1, _CHUNK_CANDIDATES // (27 * grid.max_per_cell))
 
 
 def backward_chunk(grid: PhotonGrid) -> int:
@@ -306,7 +310,8 @@ def _chunks(nn: int, chunk: int):
 def gather_levels(grid: PhotonGrid, p: torch.Tensor, n: torch.Tensor,
                   power: torch.Tensor, coarse_power: Optional[torch.Tensor],
                   chunk: int):
-    """The forward of grid_irradiance, `chunk` points at a time, without
+    """The forward of grid_irradiance in plain PyTorch (the kernel's
+    twin, and the forward on the CPU), `chunk` points at a time, without
     grad. Returns (irradiance (N, 3), the fine level's r'^2 (N,), the
     coarse level's (N,; zeros without one), use_coarse (N,) bool)."""
     nn = p.shape[0]
@@ -328,7 +333,9 @@ def gather_levels(grid: PhotonGrid, p: torch.Tensor, n: torch.Tensor,
 
 class _Irradiance(torch.autograd.Function):
     """grid_irradiance with the gradient of the stored powers (fine
-    level and coarse level) and nothing else, recomputed in the backward
+    level and coarse level) and nothing else. The forward is
+    gather_levels on the CPU and the kernel (photon_gather.gather) on the
+    card, with the same bits; the gradient is recomputed in the backward
     from the saved points, normals, r'^2 and level, backward_chunk
     points at a time: each chunk's accepted (point, candidate) terms
     grad / (pi r'^2), in point-major order, summed by photon with
@@ -337,8 +344,12 @@ class _Irradiance(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, grid, chunk, p, n, power, coarse_power):
-        irr, r2, r2_c, use_c = gather_levels(grid, p, n, power, coarse_power,
-                                             chunk)
+        if p.device.type == "cpu":
+            irr, r2, r2_c, use_c = gather_levels(grid, p, n, power,
+                                                 coarse_power, chunk)
+        else:
+            irr, r2, r2_c, use_c = photon_gather.gather(
+                grid, p.contiguous(), n.contiguous(), power, coarse_power)
         ctx.grid = grid
         ctx.save_for_backward(p, n, r2, r2_c, use_c)
         return irr
@@ -372,12 +383,14 @@ def grid_irradiance(grid: PhotonGrid, p: torch.Tensor, n: torch.Tensor,
     (JAX ops/photon.py:178-308): the fine level's density-adaptive
     gather, and the coarse level's where the fine one holds fewer than
     knn photons within its radius and the coarse one reaches knn.
-    Points go `chunk` at a time (default: gather_chunk); neither the
-    answer nor its gradient depends on it. Differentiable in grid.power
-    and grid.coarse.power only. Counted, spanned and, while a sink is
-    open, recorded as the module's docstring says."""
-    if chunk is None:
-        chunk = gather_chunk(grid, p.device)
+    On the CPU points go `chunk` at a time (default: gather_chunk);
+    `chunk` applies to the CPU alone: on the card one kernel launch
+    takes them all. Neither the answer nor its gradient depends on it.
+    Differentiable in grid.power and grid.coarse.power only. Counted,
+    spanned and, while a sink is open, recorded as the module's
+    docstring says."""
+    if chunk is None and p.device.type == "cpu":
+        chunk = gather_chunk(grid)
     coarse_power = None if grid.coarse is None else grid.coarse.power
     profiling.count("photon.gathers")
     profiling.count("photon.points", p.shape[0])

@@ -43,6 +43,7 @@ from cse168_raytracer_tpu_torch.render.integrator import \
     render_hdr  # noqa: E402
 from cse168_raytracer_tpu_torch.utils import checkpoint as tck  # noqa: E402
 from test_torch_golden import load_ppm  # noqa: E402
+from test_torch_photon_gather_kernel import gather_case  # noqa: E402
 from test_torch_render import port_inputs  # noqa: E402
 from test_torch_sampling import feed  # noqa: E402,F401  (fixture)
 
@@ -230,51 +231,6 @@ def jax_gather(grid, q, n, monkeypatch):
 
     irr, seen = jax.jit(run)(jnp.asarray(q), jnp.asarray(n))
     return np.asarray(irr), [np.asarray(x) for x in seen]
-
-
-def gather_case(case):
-    """(pos, power, dirs, build kwargs, query points, normals): the
-    cases of tests/test_photon.py (fixed radius, sparse fallback,
-    overflow energy, clustered, the 500-NN auto radius), with random
-    normals so the facing test rejects photons too."""
-    rng = np.random.default_rng({"fixed": 0, "sparse": 1, "overflow": 3,
-                                 "clustered": 4, "knn500": 11}[case])
-    if case == "fixed":
-        pos = rng.uniform(-2, 2, (500, 3))
-        kw = dict(radius=0.5, max_per_cell=64, coarse_factor=None)
-        q = rng.uniform(-1, 1, (64, 3))
-    elif case == "sparse":
-        pos = np.array([1.25, 0, 0]) + rng.uniform(-0.3, 0.3, (600, 3))
-        kw = dict(radius=0.5, max_per_cell=64, coarse_factor=8.0)
-        q = np.concatenate([np.zeros((1, 3)), rng.uniform(-2, 2, (40, 3))])
-    elif case == "overflow":
-        pos = rng.normal(0, 0.01, (400, 3))
-        kw = dict(radius=1.0, max_per_cell=16, knn=1 << 30)
-        q = rng.normal(0, 0.3, (32, 3))
-    elif case == "clustered":
-        blobs = rng.uniform(-2, 2, (6, 3))
-        pos = np.concatenate([b + rng.normal(0, 0.08, (700, 3))
-                              for b in blobs])
-        kw = dict(radius=0.35, max_per_cell=64, knn=1 << 30)
-        q = np.concatenate([blobs, rng.uniform(-2, 2, (40, 3))])
-    else:
-        bg = np.stack([rng.uniform(-4, 4, 12000), np.zeros(12000),
-                       rng.uniform(-4, 4, 12000)], 1)
-        hot = np.stack([rng.normal(0, 0.25, 6000), np.zeros(6000),
-                        rng.normal(0, 0.25, 6000)], 1)
-        pos = np.concatenate([bg, hot])
-        kw = dict(radius=jp._auto_radius(pos.astype(np.float32), 500, 64),
-                  max_per_cell=64, knn=500)
-        q = np.concatenate([[[0, 0, 0], [2, 0, 2], [0.6, 0, 0]],
-                            rng.uniform(-3, 3, (29, 3)) * [1, 0, 1]])
-    n_ph = pos.shape[0]
-    power = np.abs(rng.normal(1.0, 0.2, (n_ph, 3))) / n_ph
-    dirs = rng.normal(0, 1, (n_ph, 3)) - [0, 2.0, 0]
-    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-    nrm = rng.normal(0, 1, (q.shape[0], 3)) + [0, 2.0, 0]
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    f32 = lambda a: np.asarray(a, np.float32)
-    return f32(pos), f32(power), f32(dirs), kw, f32(q), f32(nrm)
 
 
 @pytest.mark.parametrize("case", ["fixed", "sparse", "overflow", "clustered",
@@ -671,7 +627,7 @@ def test_render_grad_same_at_any_chunk(plane_maps, monkeypatch):
     cfg = RenderConfig(width=16, height=16, trace_depth=2)
     out = []
     for budget in (1 << 20, 27 * 64 * 5):
-        monkeypatch.setitem(tp._CHUNK_CANDIDATES, "cpu", budget)
+        monkeypatch.setattr(tp, "_CHUNK_CANDIDATES", budget)
         grids = {}
         for name in ("global_map", "caustic_map"):
             g = getattr(ps.photons, name)
@@ -683,8 +639,7 @@ def test_render_grad_same_at_any_chunk(plane_maps, monkeypatch):
         render_hdr(scene, pst, pcam, cfg)[0].sum().backward()
         out.append([t.grad for g in grids.values()
                     for t in (g.power, g.coarse.power)])
-    assert tp.gather_chunk(ps.photons.global_map,
-                           torch.device("cpu")) == 5
+    assert tp.gather_chunk(ps.photons.global_map) == 5
     for a, b in zip(*out):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
     assert sum(float(t.abs().sum()) for t in out[0]) > 0
