@@ -12,15 +12,17 @@ closest hit on the primary rays and any hit on the shadow rays, each
 without and with its counters, and of K6 on the primary rays (CUDA
 events over --reps launches after a warm-up); the ms of a fwd+bwd step
 with "pallas_sah" and with "pallas" (5 steps after a warm-up); and a
-digest of each kernel's outputs; and, by torch.profiler over three
-calls, the device time a call of each kernel launch and copy that each
-of the five calls makes. With --against DIR it runs itself in turns on
-DIR's package and on this checkout's (DIR, this, this, DIR), each in a
+digest of each kernel's outputs; and, by torch.profiler over one call,
+the device time of each kernel launch and copy that each of the five
+calls makes. With --against DIR it runs itself in turns on DIR's
+package and on this checkout's (DIR, this, this, DIR), each in a
 process of its own, and prints each quantity's mean over the two runs
 of each, whether the two give the same outputs bit for bit, and the
 first run's device times of each.
 It imports the package of the checkout it measures (--root), so it times
-an older commit's kernels with this file. Fails without a CUDA device.
+an older commit's kernels with this file, and this checkout's timers
+(chip_smoke.py's time_cuda and device_ops) whichever package it
+measures. Fails without a CUDA device.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ def measure(res, reps):
     from cse168_raytracer_tpu_torch.render.integrator import (
         block_ray_order, render_hdr)
     from cse168_raytracer_tpu_torch.scenes import build
+    from chip_smoke import device_ops, time_cuda
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_kinds: needs a CUDA device")
@@ -87,31 +90,11 @@ def measure(res, reps):
         "k6": lambda: tb.closest_hit(blocks, *primary),
     }
 
-    def timed(fn, n):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
-
-    def device_ms(fn, n=3):
-        """{kernel or copy: device ms a call} of fn, by torch.profiler."""
-        act = torch.profiler.ProfilerActivity.CUDA
-        with torch.profiler.profile(activities=[act]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
+    def device_ms(fn):
+        """{kernel or copy: device ms} of one call of fn."""
         out = {}
-        for e in prof.key_averages():
-            total = (getattr(e, "device_time_total", 0)
-                     or getattr(e, "cuda_time_total", 0))
-            if total:
-                out[e.key[:60]] = total / n / 1e3
+        for name, us in device_ops(fn) or []:
+            out[name] = out.get(name, 0.0) + us / 1e3
         return out
 
     out, digest, kernels = {}, {}, {}
@@ -122,7 +105,7 @@ def measure(res, reps):
         for x in got:
             h.update(x.cpu().numpy().tobytes())
         digest[key] = h.hexdigest()[:16]
-        out[key] = timed(fn, reps)
+        out[key] = time_cuda(fn, reps)
         kernels[key] = device_ms(fn)
 
     def step(s):
@@ -132,7 +115,7 @@ def measure(res, reps):
         hdr.sum().backward()
 
     for kind, s in kinds.items():
-        out["step_" + kind] = timed(lambda: step(s), 5)
+        out["step_" + kind] = time_cuda(lambda: step(s), 5)
     out["digest"] = digest
     out["device_ms"] = kernels
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -164,6 +147,8 @@ def main(argv=None):
                     help="another checkout to time in turns with this one")
     args = ap.parse_args(argv)
     if args.against is None:
+        sys.path.insert(0, HERE)
+        import chip_smoke  # noqa: F401  (this checkout's timers)
         sys.path.insert(0, os.path.abspath(args.root))
         print("RESULT " + json.dumps(measure(args.res, args.reps)),
               flush=True)

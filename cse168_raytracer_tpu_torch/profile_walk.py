@@ -7,8 +7,8 @@ Builds each chosen kernel source with its clock64 probe (the plain
 builds carry none of it) and runs it on lit sponza_proxy at --res:
 
 - wide: csrc/traverse_wide.cu with -DWALK_PROBE, on one fwd+bwd step of
-  profile_step.py's lit scene (kernels K1, closest hit, and K2, any
-  hit) and one forward render with the traversal counters (K3);
+  the lit scene (kernels K1, closest hit, and K2, any hit) and one
+  forward render with the traversal counters (K3);
 - binary: csrc/traverse_binary.cu with -DWALK_PROBE (kernel K5, kind
   "pallas_sah"), closest hit on the primary rays and any hit on the lit
   shadow rays, each without and with its counters;
@@ -22,8 +22,9 @@ ray-leaf pairs, the rays per group, and the serve cycles per pair and
 per group. For K6 it prints, per 256-ray tile, the cycles of thread 0
 of its cull CTA in the cull and of its test CTAs in waiting for staged
 operands and in the triangle tests, and the (tile, block) pairs
-tested, on average and in the tile that passes the most blocks. A probe adds a few clock reads per step; its times are not the
-plain kernel's, which chip_smoke.py measures. Fails without a CUDA
+tested, on average and in the tile that passes the most blocks. A probe
+adds a few clock reads per step; its times are not the plain kernel's,
+which portbench/ and profile_kinds.py measure. Fails without a CUDA
 device.
 """
 
@@ -41,13 +42,22 @@ from cse168_raytracer_tpu_torch.models.lights import (LIGHT_POINT,
 from cse168_raytracer_tpu_torch.ops import (binary_bvh, cuda_build,
                                             tri_blocks, wide_bvh)
 from cse168_raytracer_tpu_torch.ops.accel import attach_accel
-from cse168_raytracer_tpu_torch.profile_step import step
 from cse168_raytracer_tpu_torch.render.camera import eye_rays
 from cse168_raytracer_tpu_torch.render.integrator import (block_ray_order,
                                                           render_hdr)
 from cse168_raytracer_tpu_torch.scenes import build
 
 KERNELS = ("wide", "binary", "blocks")
+
+
+def step(scene, static, cam, cfg):
+    """One fwd+bwd step of sum(render_hdr) w.r.t. kd; returns the
+    gradient."""
+    kd = scene.materials.kd.detach().clone().requires_grad_(True)
+    s = scene.replace(materials=scene.materials.replace(kd=kd))
+    hdr, _ = render_hdr(s, static, cam, cfg)
+    hdr.sum().backward()
+    return kd.grad
 
 
 def read_probe(fn):
