@@ -1122,10 +1122,11 @@ def compare_k6(label, blocks, args, got=None):
     the kernel counts in a launch of its own. Returns the pairs."""
     import torch
     from cse168_raytracer_tpu_torch.ops import tri_blocks as tb
-    from cse168_raytracer_tpu_torch.ops.wide_bvh import _bounds
+    from cse168_raytracer_tpu_torch.ops.intersect import ray_bounds
     t, ids = tb.closest_hit(blocks, *args) if got is None else got
     tp, idp, pairs = tb.closest_hit_plain(blocks, *args, count_pairs=True)
-    k_pairs = int(tb._launch(blocks, *args[:2], *_bounds(args[0], *args[2:]),
+    k_pairs = int(tb._launch(blocks, *args[:2],
+                             *ray_bounds(args[0], *args[2:]),
                              count_pairs=True)[2].sum())
     if not (torch.equal(t, tp) and torch.equal(ids, idp)):
         raise AssertionError(f"{label}: kernel and plain version differ "

@@ -30,6 +30,8 @@ depends on the op (chip_smoke.py phase 13 counts each on 2^20 inputs):
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -163,11 +165,21 @@ def safe_normalize(a: torch.Tensor) -> torch.Tensor:
     return normalize(a, eps=1e-30)
 
 
+@functools.lru_cache(maxsize=None)
+def unit_axis(i: int, dtype, device) -> torch.Tensor:
+    """The (3,) unit vector along axis i, read-only. Made on `device` at
+    its first use, by a fill of zeros and a fill of one element, and kept
+    per (i, dtype, device): nothing is copied from the host, which would
+    block it, and a frame launches nothing for it."""
+    with torch.inference_mode(False):
+        e = torch.zeros(3, dtype=dtype, device=device)
+        e.narrow(0, i, 1).fill_(1.0)
+    return e
+
+
 def _axis(like: torch.Tensor, i: int) -> torch.Tensor:
     """The unit vector along axis i, broadcast to `like`'s shape."""
-    e = like.new_zeros(3)
-    e[i] = 1.0
-    return e.expand(like.shape)
+    return unit_axis(i, like.dtype, like.device).expand(like.shape)
 
 
 def get_tangents(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -46,7 +46,8 @@ from cse168_raytracer_tpu_torch.ops import (binary_bvh, bvh, forest, packet,
 from cse168_raytracer_tpu_torch.ops.intersect import (PRIM_TRI, _BIG, Hit,
                                                       _hit,
                                                       _occluded_by_pools,
-                                                      _then_pools)
+                                                      _then_pools,
+                                                      ray_bounds)
 from cse168_raytracer_tpu_torch.ops.pluecker import triangle_t
 from cse168_raytracer_tpu_torch.utils import profiling
 
@@ -267,7 +268,7 @@ def accel_intersect_triangles(accel: BlockAccel, o, d, tmin, tmax):
     (first lane on ties), and a block's hit replaces the best only when
     strictly nearer. Returns (t (N,), _BIG on a miss; id (N,) int32)."""
     n = o.shape[0]
-    tmin, tmax = wide_bvh._bounds(o, tmin, tmax)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     o_t, d_t, tmin_t, tmax_t = _tile_rays(o.detach(), d.detach(), tmin,
                                           tmax)
     nt, tile = tmin_t.shape
@@ -295,7 +296,7 @@ def accel_any_hit_triangles(accel: BlockAccel, o, d, tmin, tmax):
     resolve at their first accepted triangle, and a tile skips groups
     and blocks that no unresolved ray of it passes. Returns (N,) bool."""
     n = o.shape[0]
-    tmin, tmax = wide_bvh._bounds(o, tmin, tmax)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     o_t, d_t, tmin_t, tmax_t = _tile_rays(o.detach(), d.detach(), tmin,
                                           tmax)
     nt, tile = tmin_t.shape

@@ -44,11 +44,12 @@ from cse168_raytracer_tpu_torch.models.geometry import (TrianglePack,
                                                         plucker_operands)
 from cse168_raytracer_tpu_torch.ops import cuda_build
 from cse168_raytracer_tpu_torch.ops.bvh import _build_cbox, _leaf_boxes
-from cse168_raytracer_tpu_torch.ops.intersect import _BIG
-from cse168_raytracer_tpu_torch.ops.wide_bvh import (K, _bounds, _leaf_test,
+from cse168_raytracer_tpu_torch.ops.intersect import _BIG, ray_bounds
+from cse168_raytracer_tpu_torch.ops.wide_bvh import (K, _after_launch,
+                                                     _error_word, _leaf_test,
                                                      _leafW_from_pack,
                                                      _padded_entry, _route,
-                                                     _raise_on, check_launch)
+                                                     check_launch)
 from cse168_raytracer_tpu_torch.utils import profiling
 
 # the counters of kernel launches by mode, launch.binary.<mode>, counted
@@ -137,7 +138,7 @@ def walk_binary_plain(bvh: BinaryBVH, o, d, tmin, tmax,
     Returns (t (N,) f32, _BIG on a miss; id (N,) int32; internal-node
     visits (N,) int32; leaf visits (N,) int32). Dead rays (tmax < tmin)
     visit nothing."""
-    tmin, tmax = _bounds(o, tmin, tmax)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     o, d = o.detach(), d.detach()
     n, s, dev = o.shape[0], bvh.stack_depth, o.device
     rcp = 1.0 / d
@@ -291,7 +292,7 @@ def _launch(bvh: BinaryBVH, o, d, tmin, tmax, any_hit: bool,
         return out_t, out_id, out_nv, out_lv
     lib = _kernel_lib()
     _stack_smem_bytes(lib, bvh.stack_depth)
-    err = torch.zeros((1,), **i32)
+    err = _error_word(o.device, "traverse_binary")
     stream = torch.cuda.current_stream(o.device).cuda_stream
     ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
     with profiling.span("bvh.launch"):
@@ -305,7 +306,7 @@ def _launch(bvh: BinaryBVH, o, d, tmin, tmax, any_hit: bool,
     mode = "any" if any_hit else "closest"
     profiling.count(f"{LAUNCH}.{'stats_' if with_stats else ''}{mode}")
     profiling.count("bvh.lanes", n)
-    _raise_on(err, "traverse_binary")
+    _after_launch(err, "traverse_binary")
     return out_t, out_id, out_nv, out_lv
 
 
@@ -316,7 +317,7 @@ def closest_hit_triangles(bvh: BinaryBVH, o, d, tmin, tmax,
     triangle tests) (N,) i32 per ray."""
     if not _route(o):
         return closest_hit_triangles_plain(bvh, o, d, tmin, tmax, with_stats)
-    tmin, tmax = _bounds(o, tmin, tmax)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     t, ids, n_int, n_leaf = _launch(bvh, o, d, tmin, tmax, False, with_stats)
     return (t, ids, *_tests(n_int, n_leaf)) if with_stats else (t, ids)
 
@@ -327,6 +328,6 @@ def any_hit_triangles(bvh: BinaryBVH, o, d, tmin, tmax,
     in [tmin, tmax]; with_stats (t, box tests, triangle tests)."""
     if not _route(o):
         return any_hit_triangles_plain(bvh, o, d, tmin, tmax, with_stats)
-    tmin, tmax = _bounds(o, tmin, tmax)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     t, _, n_int, n_leaf = _launch(bvh, o, d, tmin, tmax, True, with_stats)
     return (t, *_tests(n_int, n_leaf)) if with_stats else t

@@ -33,7 +33,7 @@ from cse168_raytracer_tpu_torch.models.geometry import (TrianglePack,
 from cse168_raytracer_tpu_torch.ops.intersect import (PRIM_TRI, _BIG,
                                                       _DEN_TINY, Hit, _hit,
                                                       _occluded_by_pools,
-                                                      _then_pools)
+                                                      _then_pools, ray_bounds)
 
 _FAR = 1.0e30  # degenerate AABB placed at infinity: slab always fails
 
@@ -173,11 +173,6 @@ def _leaf_intersect(rows, o, d, m, tmin, tmax, k):
     return torch.where(ok, tt, _BIG).min(1)
 
 
-def _expand(x, o):
-    return torch.as_tensor(x, dtype=torch.float32,
-                           device=o.device).expand(o.shape[0]).contiguous()
-
-
 @torch.no_grad()
 def bvh_closest_hit_triangles(accel: BVHAccel, o, d, tmin, tmax,
                               collect_stats: bool = False,
@@ -187,7 +182,7 @@ def bvh_closest_hit_triangles(accel: BVHAccel, o, d, tmin, tmax,
     ray ends at its first accepted triangle. collect_stats appends
     TraversalStats over the wavefront."""
     o, d = o.detach(), d.detach()
-    tmin, tmax = _expand(tmin, o), _expand(tmax, o)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     n, s, dev = o.shape[0], accel.stack_depth, o.device
     ni, k = accel.n_internal, accel.leaf_size
     rcp = 1.0 / d

@@ -26,7 +26,7 @@ import torch
 from cse168_raytracer_tpu_torch.models.geometry import (
     TrianglePack, build_pack_from_arrays, pack_host_arrays)
 from cse168_raytracer_tpu_torch.ops import wide_bvh
-from cse168_raytracer_tpu_torch.ops.intersect import _BIG
+from cse168_raytracer_tpu_torch.ops.intersect import _BIG, ray_bounds
 from cse168_raytracer_tpu_torch.ops.wide_bvh import K, WideBVH
 
 # 80 MB of leaf table (16 * 4K * 4 bytes per leaf): the JAX package's
@@ -95,8 +95,7 @@ def forest_closest_hit_triangles(forest: Forest, o, d, tmin, tmax,
     """Closest hit (or occlusion) across the forest with cross-chunk tmax
     shrinking: (t (N,), _BIG on a miss; id (N,) int32 = pack row)."""
     n = o.shape[0]
-    tmax = torch.as_tensor(tmax, dtype=torch.float32,
-                           device=o.device).expand(n)
+    (tmax,) = ray_bounds(o, tmax)
     best_t = torch.full((n,), _BIG, device=o.device)
     best_id = torch.zeros((n,), dtype=torch.int32, device=o.device)
     for bvh, start in zip(forest.chunks, forest.starts):
@@ -119,8 +118,7 @@ def forest_stats(forest: Forest, o, d, tmin, tmax):
     (kernel K3), with the traversal's tmax shrinking. Returns two () int64
     totals."""
     n = o.shape[0]
-    tmax = torch.as_tensor(tmax, dtype=torch.float32,
-                           device=o.device).expand(n)
+    (tmax,) = ray_bounds(o, tmax)
     best_t = torch.full((n,), _BIG, device=o.device)
     box = tri = torch.zeros((), dtype=torch.int64, device=o.device)
     for bvh in forest.chunks:

@@ -50,18 +50,22 @@ class Hit:
     hit: torch.Tensor        # (N,) bool
 
 
-def _bounds(tmin, tmax, o):
+def ray_bounds(o, *bounds) -> tuple:
+    """Each of `bounds` (a ray interval's tmin or tmax: a number, a 0-d
+    or an (N,) tensor) as a contiguous (N,) float32 tensor on o's device,
+    N = o.shape[0]. A number is filled on the device, so nothing is
+    copied from the host, which would block it; a tensor is broadcast,
+    and copied only where it lives on another device (counted as the
+    sync site ray_bounds)."""
     n = o.shape[0]
-    as_t = lambda x: torch.as_tensor(x, dtype=o.dtype, device=o.device)
-    with profiling.sync("pool_bounds", o, n=_copies(o, tmin, tmax)):
-        return as_t(tmin).expand(n), as_t(tmax).expand(n)
 
-
-def _copies(o, *xs) -> int:
-    """How many of xs torch.as_tensor copies to o's device (a number or
-    a tensor elsewhere): each copy to the card blocks the host."""
-    return sum(not (isinstance(x, torch.Tensor) and x.device == o.device)
-               for x in xs)
+    def one(x):
+        if not isinstance(x, torch.Tensor):
+            return torch.full((n,), x, dtype=torch.float32, device=o.device)
+        with profiling.sync("ray_bounds", o, n=int(x.device != o.device)):
+            return torch.as_tensor(x, dtype=torch.float32,
+                                   device=o.device).expand(n).contiguous()
+    return tuple(one(x) for x in bounds)
 
 
 def _hit(t, ids, prim_type) -> Hit:
@@ -82,7 +86,7 @@ def intersect_triangles(pack: TrianglePack, o, d, tmin, tmax,
     tb = min(tri_block, t_total)
     while t_total % tb:
         tb -= 128
-    tmin, tmax = _bounds(tmin, tmax, o)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     if pack.w6 is None:
         w6, w4 = plucker_operands(pack.v0, pack.e1, pack.e2)
     else:
@@ -124,7 +128,7 @@ def detach_tri_hit(impl, pack, o, d, tmin, tmax, *extra):
 
 def intersect_spheres(pool: SpherePool, o, d, tmin, tmax) -> Hit:
     """Quadratic-formula sphere intersection (Sphere.cpp:27-69)."""
-    tmin, tmax = _bounds(tmin, tmax, o)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     tmin, tmax = tmin[:, None], tmax[:, None]
     to_o = o[:, None, :] - pool.center[None, :, :]        # (N, S, 3)
     a = dot(d, d)[:, None]
@@ -146,7 +150,7 @@ def intersect_spheres(pool: SpherePool, o, d, tmin, tmax) -> Hit:
 @torch.no_grad()
 def intersect_planes(pool: PlanePool, o, d, tmin, tmax) -> Hit:
     """Infinite-plane intersection (Plane.cpp:32-48)."""
-    tmin, tmax = _bounds(tmin, tmax, o)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     tmin, tmax = tmin[:, None], tmax[:, None]
     ndotd = dot(d[:, None, :], pool.normal[None, :, :])
     safe = torch.where(ndotd.abs() < 1e-6, 1.0, ndotd)
@@ -178,7 +182,7 @@ def intersect_blpatches(pool: BLPatchPool, o, d, tmin, tmax) -> Hit:
     262,144 rays and 16 patches, more under autograd, which keeps the
     intermediates for the gradient of t."""
     n = o.shape[0]
-    tmin, tmax = _bounds(tmin, tmax, o)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     tmin, tmax = tmin[:, None], tmax[:, None]
     a3 = pool.p11 - pool.p10 - pool.p01 + pool.p00    # (B, 3)
     b3 = pool.p10 - pool.p00

@@ -24,12 +24,11 @@ from cse168_raytracer_tpu_torch.config import MIRO_TMAX
 from cse168_raytracer_tpu_torch.core.vecmath import cross
 from cse168_raytracer_tpu_torch.models.geometry import TrianglePack
 from cse168_raytracer_tpu_torch.ops.bvh import (TraversalStats, _build_cbox,
-                                                _expand, _leaf_boxes,
-                                                _slab_enter)
+                                                _leaf_boxes, _slab_enter)
 from cse168_raytracer_tpu_torch.ops.intersect import (PRIM_TRI, _BIG, Hit,
                                                       _hit,
                                                       _occluded_by_pools,
-                                                      _then_pools)
+                                                      _then_pools, ray_bounds)
 from cse168_raytracer_tpu_torch.ops.pluecker import triangle_t
 
 
@@ -74,7 +73,7 @@ def packet_closest_hit_triangles(accel: PacketAccel, o, d, tmin, tmax,
     o, d = o.detach(), d.detach()
     n, t, k = o.shape[0], accel.tile, accel.leaf_size
     ni, s, dev = accel.n_internal, accel.stack_depth, o.device
-    tmin, tmax = _expand(tmin, o), _expand(tmax, o)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     nt = -(-n // t)
     n_pad = nt * t
 

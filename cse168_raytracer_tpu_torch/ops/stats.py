@@ -28,6 +28,7 @@ from cse168_raytracer_tpu_torch.config import MIRO_TMAX
 from cse168_raytracer_tpu_torch.ops import binary_bvh, forest, wide_bvh
 from cse168_raytracer_tpu_torch.ops.accel import (BLOCK, GROUP, BlockAccel,
                                                   _slab)
+from cse168_raytracer_tpu_torch.ops.intersect import ray_bounds
 
 
 @dataclasses.dataclass
@@ -51,7 +52,7 @@ def measure_traversal_stats(accel: BlockAccel, o, d, tmin=0.0,
     group's box, and every block box of the groups some ray passes; a ray
     tests a block's BLOCK triangles when its own box test passes."""
     n = o.shape[0]
-    tmin, tmax = wide_bvh._bounds(o, tmin, tmax)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     rcp = 1.0 / d
     box = torch.zeros((), dtype=torch.int64, device=o.device)
     tri = torch.zeros((), dtype=torch.int64, device=o.device)

@@ -29,7 +29,8 @@ from cse168_raytracer_tpu_torch.config import PI
 from cse168_raytracer_tpu_torch.core.fastgather import (select_component,
                                                         take_rows)
 from cse168_raytracer_tpu_torch.core.vecmath import (cross, div_scalar, dot,
-                                                     safe_normalize, sqrt_rn)
+                                                     safe_normalize, sqrt_rn,
+                                                     unit_axis)
 from cse168_raytracer_tpu_torch.models.geometry import (BLPatchPool,
                                                         PlanePool, SpherePool,
                                                         TrianglePack)
@@ -271,8 +272,7 @@ def make_surface(tris: TrianglePack, spheres: SpherePool, planes: PlanePool,
     # pin missed lanes to benign values (their garbage would NaN
     # gradients through later masked math)
     ok = hit.hit[:, None]
-    with profiling.sync("surface_up", p):
-        up = torch.tensor([0.0, 1.0, 0.0], dtype=p.dtype, device=p.device)
+    up = unit_axis(1, p.dtype, p.device)
     return Surface(p=torch.where(ok, p, 0.0), n=torch.where(ok, n, up),
                    geo_n=torch.where(ok, gn, up),
                    uv=torch.where(ok, uv, 0.0),

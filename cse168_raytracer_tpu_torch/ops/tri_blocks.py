@@ -38,10 +38,9 @@ from cse168_raytracer_tpu_torch.models.geometry import (TrianglePack,
                                                         pack_host_arrays)
 from cse168_raytracer_tpu_torch.ops import cuda_build
 from cse168_raytracer_tpu_torch.ops.bvh import _slab_enter
-from cse168_raytracer_tpu_torch.ops.intersect import _BIG
+from cse168_raytracer_tpu_torch.ops.intersect import _BIG, ray_bounds
 from cse168_raytracer_tpu_torch.ops.pluecker import triangle_t
-from cse168_raytracer_tpu_torch.ops.wide_bvh import (_bounds, _route,
-                                                     check_launch)
+from cse168_raytracer_tpu_torch.ops.wide_bvh import _route, check_launch
 from cse168_raytracer_tpu_torch.utils import profiling
 
 BLOCK = 256
@@ -110,7 +109,7 @@ def closest_hit_plain(blocks: TriBlocks, o, d, tmin, tmax,
     """Plain PyTorch version of the kernel: (t (N,) f32, _BIG on a miss;
     id (N,) int32 = block*256 + lane, 0 on a miss), and with count_pairs
     the number of (tile, block) pairs that passed the cull."""
-    tmin, tmax = _bounds(o, tmin, tmax)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     n = o.shape[0]
     o, d, tmin, tmax = _tiles(o.detach(), d.detach(), tmin, tmax)
     rcp = 1.0 / d
@@ -223,7 +222,7 @@ def closest_hit(blocks: TriBlocks, o, d, tmin, tmax):
     = block*256 + lane, the Morton pack row)."""
     if not _route(o):
         return closest_hit_plain(blocks, o, d, tmin, tmax)
-    tmin, tmax = _bounds(o, tmin, tmax)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     return _launch(blocks, o, d, tmin, tmax)
 
 

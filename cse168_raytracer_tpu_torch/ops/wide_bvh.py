@@ -42,8 +42,10 @@ ops/surface.py.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -53,7 +55,7 @@ from cse168_raytracer_tpu_torch.models.geometry import (TrianglePack,
                                                         pack_host_arrays,
                                                         plucker_operands)
 from cse168_raytracer_tpu_torch.ops import cuda_build
-from cse168_raytracer_tpu_torch.ops.intersect import _BIG, _copies
+from cse168_raytracer_tpu_torch.ops.intersect import _BIG, ray_bounds
 from cse168_raytracer_tpu_torch.ops.pluecker import triangle_t
 from cse168_raytracer_tpu_torch.utils import profiling
 
@@ -65,6 +67,8 @@ BOX_PAD = 1e-3   # slot widening, traverse_wide.cu's BOX_PAD
 # where the wrapper launches the kernel
 LAUNCH = "launch.wide"
 profiling.declare(LAUNCH, ("closest", "any", "stats_closest", "stats_any"))
+# launches whose error bits a frame reads at its end (frame_errors)
+profiling.declare("launch_error", ("deferred",))
 
 
 @dataclasses.dataclass
@@ -284,14 +288,6 @@ def build_bvh4_sah(pack: TrianglePack, width: int = 4,
 # Traversal: the CUDA kernel, its plain version and a brute-force oracle
 # ---------------------------------------------------------------------------
 
-def _bounds(o, tmin, tmax):
-    n = o.shape[0]
-    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32,
-                                     device=o.device).expand(n).contiguous()
-    with profiling.sync("ray_bounds", o, n=_copies(o, tmin, tmax)):
-        return as_t(tmin), as_t(tmax)
-
-
 def _chunk_sizes(n_leaves: int, device) -> tuple[int, int]:
     budget = (1 << 25) if device.type == "cuda" else (1 << 21)
     leaves = max(1, min(n_leaves, budget // (K * 256)))
@@ -316,7 +312,7 @@ def brute_force_triangles(bvh: WideBVH, o, d, tmin, tmax):
     attr (N, 32)) of the nearest accepted triangle per ray under the
     kernel's acceptance rule, first (leaf, lane) on ties. Only live rays
     (tmax >= tmin) are tested. t < _BIG is also the any-hit answer."""
-    tmin, tmax = _bounds(o, tmin, tmax)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     n = o.shape[0]
     best_t = torch.full((n,), _BIG, dtype=torch.float32, device=o.device)
     best_id = torch.zeros((n,), dtype=torch.int64, device=o.device)
@@ -397,7 +393,7 @@ def walk_plain(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool = False):
     first accepted leaf. Returns (t (N,) f32, _BIG on a miss; id (N,)
     int32; internal-node visits (N,) int32; leaf visits (N,) int32).
     Dead rays (tmax < tmin) visit nothing."""
-    tmin, tmax = _bounds(o, tmin, tmax)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     o, d = o.detach(), d.detach()
     n, w, dev = o.shape[0], bvh.width, o.device
     rcp = 1.0 / d
@@ -566,9 +562,9 @@ def _call(lib, bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
     """Call an entry point of `lib`, a build of traverse_wide.cu:
     traverse_any when any_hit, else traverse_closest_attr. Returns the
     outputs (t, id, attr, internal visits, leaf visits), the entries a
-    mode does not produce being None, and the (1,) error bits that the
-    launch sets, None where there were no rays and nothing was
-    launched."""
+    mode does not produce being None, and the (1,) error word that the
+    launch ORs its bits into (`_error_word`), None where there were no
+    rays and nothing was launched."""
     o = o.detach().contiguous()
     d = d.detach().contiguous()
     _check_inputs(bvh, o, d, tmin, tmax)
@@ -582,7 +578,7 @@ def _call(lib, bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
         return (out_t, torch.empty((0,), **i32),
                 torch.empty((0, 32), dtype=torch.float32, device=o.device),
                 out_nv, out_lv), None
-    err = torch.zeros((1,), dtype=torch.int32, device=o.device)
+    err = _error_word(o.device, "traverse_wide")
     stream = torch.cuda.current_stream(o.device).cuda_stream
     ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
     common = [bvh.width, ptr(o), ptr(d), ptr(tmin), ptr(tmax), n,
@@ -603,8 +599,69 @@ def _call(lib, bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
     return (out_t, out_id, out_attr, out_nv, out_lv), err
 
 
+class _Frame(threading.local):
+    """The frame open on this thread. It lives here, not in an argument:
+    the launches are reached through the integrator, the shading and the
+    accelerator's dispatch, none of which carries a frame, and each
+    thread's frame is its own (a backward runs on autograd's thread,
+    outside every frame)."""
+
+    def __init__(self):
+        self.words = None     # {device: error word} while a frame is open
+        self.kernels = set()  # the kernels that ORed into them
+
+
+_frame = _Frame()
+
+
+@contextlib.contextmanager
+def frame_errors():
+    """A frame's one check of the traversal's errors. Inside it, every
+    launch of the card walks (traverse_wide.cu, traverse_binary.cu) ORs
+    its error bits into one int32 word of its device, zeroed once, where
+    a launch outside any frame gets a word of its own that is read right
+    after it; so a frame does not wait for its walks before it queues
+    what follows them. When the scope ends, each word is read once and a
+    stack overflow or a bad link raises as the per-launch check does. A
+    frame opened inside another joins it; a block that raises is not
+    checked. Usable as a decorator."""
+    outer = _frame.words is None
+    if outer:
+        _frame.words, _frame.kernels = {}, set()
+    try:
+        yield
+    finally:
+        if outer:
+            words, _frame.words = _frame.words, None
+    if outer:
+        for err in words.values():
+            _raise_on(err, "/".join(sorted(_frame.kernels)))
+
+
+def _error_word(device, kernel: str):
+    """The (1,) int32 word that a launch of `kernel` on `device` ORs its
+    error bits into: the open frame's, else a fresh one."""
+    words = _frame.words
+    if words is None:
+        return torch.zeros((1,), dtype=torch.int32, device=device)
+    _frame.kernels.add(kernel)
+    if device not in words:
+        words[device] = torch.zeros((1,), dtype=torch.int32, device=device)
+    return words[device]
+
+
+def _after_launch(err, kernel: str = "traverse_wide"):
+    """After a launch that ORed its bits into err (`_error_word`): inside
+    a frame the frame's end reads them (counted as launch_error.deferred);
+    outside, they are read now."""
+    if _frame.words is None:
+        _raise_on(err, kernel)
+    else:
+        profiling.count("launch_error.deferred")
+
+
 def _raise_on(err, kernel: str = "traverse_wide"):
-    """The per-launch check: a stack overflow or a bad link raises."""
+    """Read an error word: a stack overflow or a bad link raises."""
     with profiling.sync("launch_error", err):
         bits = int(err.item())
     if bits:
@@ -624,7 +681,7 @@ def _launch(bvh: WideBVH, o, d, tmin, tmax, any_hit: bool,
         mode = "any" if any_hit else "closest"
         profiling.count(f"{LAUNCH}.{'stats_' if with_stats else ''}{mode}")
         profiling.count("bvh.lanes", o.shape[0])
-        _raise_on(err)
+        _after_launch(err)
     return out
 
 
@@ -644,7 +701,7 @@ def closest_hit_triangles(bvh: WideBVH, o, d, tmin, tmax,
     i32 per ray."""
     if not _route(o):
         return closest_hit_triangles_plain(bvh, o, d, tmin, tmax, with_stats)
-    tmin, tmax = _bounds(o, tmin, tmax)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     t, ids, attr, n_int, n_leaf = _launch(bvh, o, d, tmin, tmax,
                                           any_hit=False,
                                           with_stats=with_stats)
@@ -659,7 +716,7 @@ def any_hit_triangles(bvh: WideBVH, o, d, tmin, tmax,
     in [tmin, tmax]; with_stats (t, box tests, triangle tests)."""
     if not _route(o):
         return any_hit_triangles_plain(bvh, o, d, tmin, tmax, with_stats)
-    tmin, tmax = _bounds(o, tmin, tmax)
+    tmin, tmax = ray_bounds(o, tmin, tmax)
     t, _, _, n_int, n_leaf = _launch(bvh, o, d, tmin, tmax, any_hit=True,
                                      with_stats=with_stats)
     if with_stats:

@@ -42,6 +42,7 @@ from cse168_raytracer_tpu_torch.models.lights import (LIGHT_POINT,
 from cse168_raytracer_tpu_torch.ops import (binary_bvh, cuda_build,
                                             tri_blocks, wide_bvh)
 from cse168_raytracer_tpu_torch.ops.accel import attach_accel
+from cse168_raytracer_tpu_torch.ops.intersect import ray_bounds
 from cse168_raytracer_tpu_torch.render.camera import eye_rays
 from cse168_raytracer_tpu_torch.render.integrator import (block_ray_order,
                                                           render_hdr)
@@ -178,7 +179,7 @@ def profile_blocks(scene, rays):
             lib.tri_blocks_probe)
         o, d = rays["primary"][:2]
         per_tile = tri_blocks._launch(blocks, o, d,
-                                      *wide_bvh._bounds(o, 0.0, 1e12),
+                                      *ray_bounds(o, 0.0, 1e12),
                                       count_pairs=True)[2]
         read_probe(lib.tri_blocks_probe)
     finally:

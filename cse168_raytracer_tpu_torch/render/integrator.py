@@ -51,14 +51,16 @@ from cse168_raytracer_tpu_torch.core.fastgather import take_rows
 from cse168_raytracer_tpu_torch.core.sampling import draw_phong_lobe
 from cse168_raytracer_tpu_torch.core.vecmath import (div_scalar, fresnel_rs,
                                                      reflect, refract,
-                                                     safe_normalize)
+                                                     safe_normalize,
+                                                     unit_axis)
 from cse168_raytracer_tpu_torch.models.materials import is_diffuse
 from cse168_raytracer_tpu_torch.models.scene import Scene, SceneStatic
 from cse168_raytracer_tpu_torch.models.textures import env_lookup
 from cse168_raytracer_tpu_torch.ops.photon import irradiance_estimate
 from cse168_raytracer_tpu_torch.ops.shading import shade_direct, trace_closest
-from cse168_raytracer_tpu_torch.render.camera import (Camera, draw_eye_rays,
-                                                      eye_rays)
+from cse168_raytracer_tpu_torch.ops.wide_bvh import frame_errors
+from cse168_raytracer_tpu_torch.render.camera import (Camera, camera_basis,
+                                                      draw_eye_rays, eye_rays)
 from cse168_raytracer_tpu_torch.utils import profiling
 
 
@@ -93,8 +95,7 @@ _COUNTERS = ("secondary_rays", "shadow_rays", "dropped_rays", "box_tests",
 
 def _total_stats(parts, primary_rays: int, device) -> RenderStats:
     """The stats of several wavefronts of one render, summed."""
-    with profiling.sync("stats_primary", device):
-        primary = torch.tensor(primary_rays, device=device)
+    primary = torch.full((), primary_rays, dtype=torch.int64, device=device)
     return RenderStats(primary_rays=primary,
                        **{f: sum(getattr(p, f) for p in parts)
                           for f in _COUNTERS})
@@ -108,9 +109,7 @@ def _pad_wavefront(o, d, weight, pixel, capacity: int) -> Wavefront:
     if pad:
         z3 = o.new_zeros((pad, 3))
         o = torch.cat([o, z3])
-        with profiling.sync("pad_direction", o):
-            up = o.new_tensor([0.0, 0.0, 1.0])
-        d = torch.cat([d, up.expand(pad, 3)])
+        d = torch.cat([d, unit_axis(2, d.dtype, d.device).expand(pad, 3)])
         weight = torch.cat([weight, z3])
         pixel = torch.cat([pixel, pixel.new_zeros((pad,))])
     alive = torch.arange(capacity, device=o.device) < n
@@ -131,9 +130,8 @@ def _compact(cands: Wavefront, capacity: int):
 
     n_alive = alive.sum()
     slot_alive = torch.arange(capacity, device=alive.device) < n_alive
-    with profiling.sync("compact_direction", alive):
-        up = cands.d.new_tensor([0.0, 0.0, 1.0])
-    d = torch.where(slot_alive[:, None], scat(cands.d), up)
+    d = torch.where(slot_alive[:, None], scat(cands.d),
+                    unit_axis(2, cands.d.dtype, cands.d.device))
     return Wavefront(o=scat(cands.o), d=d, weight=scat(cands.weight),
                      pixel=scat(cands.pixel), alive=slot_alive), dropped
 
@@ -294,8 +292,7 @@ def integrate(scene: Scene, static: SceneStatic, o, d, pixel,
                 sec = sec + wf.alive.sum()
                 drop = drop + dropped
 
-    with profiling.sync("stats_primary", dev):
-        primary = torch.tensor(n0, device=dev)
+    primary = torch.full((), n0, dtype=torch.int64, device=dev)
     stats = RenderStats(primary_rays=primary, secondary_rays=sec,
                         shadow_rays=shad, dropped_rays=drop, box_tests=boxt,
                         tri_tests=trit)
@@ -319,6 +316,7 @@ def block_ray_order(width: int, height: int):
 
 
 @profiling.traced("render.band")
+@frame_errors()
 def render_hdr_band(scene: Scene, static: SceneStatic, cam: Camera,
                     cfg: RenderConfig, gen: Optional[torch.Generator],
                     y0: int, n_rows: int):
@@ -329,7 +327,8 @@ def render_hdr_band(scene: Scene, static: SceneStatic, cam: Camera,
     bands); pixel ids are band-local. gen draws square-light origins
     (None: seeded from cfg.seed on the scene's device). Returns
     ((n_rows, w, 3) linear HDR in image row order, RenderStats); bands
-    stacked over the frame give render_hdr's image."""
+    stacked over the frame give render_hdr's image. Like render_hdr, one
+    frame: its traversal errors raise at its end (wide_bvh.frame_errors)."""
     w = cfg.width
     if n_rows % 8 or w % 16:
         raise ValueError("a band needs whole 16x8 blocks: n_rows a "
@@ -354,6 +353,7 @@ def render_hdr_band(scene: Scene, static: SceneStatic, cam: Camera,
 
 
 @profiling.traced("render.frame")
+@frame_errors()
 def render_hdr(scene: Scene, static: SceneStatic, cam: Camera,
                cfg: RenderConfig, gen: Optional[torch.Generator] = None):
     """Scene::raytraceImage before the tonemap (Scene.cpp:93-173).
@@ -363,7 +363,11 @@ def render_hdr(scene: Scene, static: SceneStatic, cam: Camera,
     samples per pixel. gen defaults to a generator on the scene's
     device seeded from cfg.seed; a generator on another device draws
     there and its numbers are moved to the scene's (core/sampling.py),
-    so one CPU generator gives card and CPU renders the same draws."""
+    so one CPU generator gives card and CPU renders the same draws.
+    A frame blocks the host at its start (the pixel order and the
+    camera's tan go to the card) and once at its end, where it reads the
+    traversal's error bits (wide_bvh.frame_errors); nothing between its
+    first launch and that read waits for the card."""
     w, h = cfg.width, cfg.height
     n_pix = w * h
     dev = scene.device
@@ -376,6 +380,7 @@ def render_hdr(scene: Scene, static: SceneStatic, cam: Camera,
         xs = torch.tensor(xs_n, device=dev)
         ys = torch.tensor(ys_n, device=dev)
     pixel = ys * w + xs
+    basis = camera_basis(cam, w, h)
     # the block order enumerates (yb, xb, yi, xi), so un-permuting
     # ray-ordered radiance is a reshape + transpose
     ray_order = (h % 8 == 0) and (w % 16 == 0)
@@ -393,9 +398,9 @@ def render_hdr(scene: Scene, static: SceneStatic, cam: Camera,
             o, d = draw_eye_rays(
                 cam, xs[cs], ys[cs], w, h, gen,
                 dof_aperture=cfg.dof_aperture if cfg.dof else 0.0,
-                dof_focus=cfg.dof_focus_plane)
+                dof_focus=cfg.dof_focus_plane, basis=basis)
         else:
-            o, d = eye_rays(cam, xs[cs], ys[cs], w, h)
+            o, d = eye_rays(cam, xs[cs], ys[cs], w, h, basis=basis)
         return integrate(scene, static, o, d, pixel[cs], n_pix,
                          cfg.trace_depth, gen=gen,
                          path_tracing=cfg.path_tracing,

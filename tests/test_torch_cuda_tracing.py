@@ -3,6 +3,10 @@ one 64 x 64 iteration of each traffic kind (a fit step with its
 backward, a path-traced thin-lens frame, a Whitted frame through glass)
 is counted by its sync.<site> counter, one for one with the warnings of
 torch.cuda.set_sync_debug_mode("warn") raised inside that site's span;
+the sites of each kind are the frame's start and its one read of the
+traversal's error bits (and the glass frame's lane-order adds), and
+nothing waits for the card between a frame's first launch and that
+read; a walk's stack overflow or bad link raises at the frame's end;
 and the backward's spans are roots on autograd's own thread.
 
 Also the glass-pane scene that tests/test_torch_tracing.py renders on
@@ -12,6 +16,7 @@ neither jax nor the JAX package:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_tracing.py
 """
 
+import dataclasses
 import threading
 import time
 import warnings
@@ -123,12 +128,10 @@ def sync_debug():
 pytestmark = pytest.mark.cuda
 
 
-def sync_warnings_by_site(run):
-    """Run `run` with a sink open and set_sync_debug_mode("warn"); put
-    each synchronizing warning down to the innermost sync.<site> span
-    open on its thread when it was raised. Returns ({sync.<site>:
-    warnings}, [(file, line) of the warnings outside every sync span],
-    the sink)."""
+def sync_warnings(run):
+    """Run `run` with a sink open and set_sync_debug_mode("warn").
+    Returns ([(perf_counter_ns, thread, file, line) of each synchronizing
+    warning], the sink)."""
     raised = []     # (perf_counter_ns, thread, file, line)
 
     def note(message, category, filename, lineno, file=None, line=None):
@@ -146,6 +149,16 @@ def sync_warnings_by_site(run):
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
+    return raised, sink
+
+
+def sync_warnings_by_site(run):
+    """Run `run` with a sink open and set_sync_debug_mode("warn"); put
+    each synchronizing warning down to the innermost sync.<site> span
+    open on its thread when it was raised. Returns ({sync.<site>:
+    warnings}, [(file, line) of the warnings outside every sync span],
+    the sink)."""
+    raised, sink = sync_warnings(run)
     syncs = [s for s in sink.spans if s.name.startswith("sync.")]
     by_site, outside = {}, []
     for t, thread, filename, lineno in raised:
@@ -174,6 +187,77 @@ def test_sync_counters_match_sync_debug_warnings(cuda, sync_debug, kind):
                        if v != before.get(k, 0)}
     assert not outside, (kind, sorted(set(outside)))
     assert by_site == counted and counted, (kind, by_site, counted)
+
+
+# the sync sites of one 64 x 64 iteration, and its traversal launches:
+# the frame's start (the pixel order, the camera's tan) and its one read
+# of the error bits; the glass frame adds its lane-order adds, a level
+# past the first (ROADMAP D1c)
+FRAME_SYNCS = {"sync.pixel_order": 2, "sync.camera_fov": 2,
+               "sync.launch_error": 1}
+SYNCS = {"fit": FRAME_SYNCS, "pt_dof": FRAME_SYNCS,
+         "whitted_glass": {**FRAME_SYNCS, "sync.lane_order.heads": 10,
+                           "sync.lane_order.counts": 20,
+                           "sync.lane_order.longest": 10}}
+LAUNCHES = {"fit": 2, "pt_dof": 32, "whitted_glass": 22}
+
+
+def launches(counts):
+    return sum(v for k, v in counts.items() if k.startswith("launch.wide."))
+
+
+@pytest.mark.parametrize("kind", ["fit", "pt_dof", "whitted_glass"])
+def test_sync_sites_of_one_iteration(cuda, kind):
+    """The exact sync.<site> increments of one iteration, and every
+    traversal launch's error check joined to the frame's."""
+    run = iteration(kind, cuda)
+    run()
+    torch.cuda.synchronize()
+    with profiling.recording() as sink:
+        run()
+    torch.cuda.synchronize()
+    counted = {k: v for k, v in sink.counts.items() if k.startswith("sync.")}
+    assert counted == SYNCS[kind]
+    assert launches(sink.counts) == LAUNCHES[kind]
+    assert sink.counts["launch_error.deferred"] == LAUNCHES[kind]
+
+
+@pytest.mark.parametrize("kind", ["fit", "pt_dof"])
+def test_nothing_waits_between_the_first_launch_and_the_error_read(
+        cuda, sync_debug, kind):
+    """No synchronizing call warns between the start of the frame's first
+    bvh.launch span and the start of its one sync.launch_error span;
+    that read warns."""
+    run = iteration(kind, cuda)
+    run()
+    torch.cuda.synchronize()
+    raised, sink = sync_warnings(run)
+    me = threading.get_ident()
+    first = min(s.start_ns for s in sink.spans if s.name == "bvh.launch")
+    (read,) = [s for s in sink.spans if s.name == "sync.launch_error"]
+    assert first < read.start_ns
+    between = [(f, line) for t, thread, f, line in raised
+               if thread == me and first <= t <= read.start_ns]
+    assert not between, sorted(set(between))
+    assert any(read.start_ns <= t <= read.end_ns for t, *_ in raised)
+
+
+@pytest.mark.parametrize("fault", ["stack overflow", "bad link"])
+def test_render_raises_a_walk_error_at_the_frames_end(cuda, fault):
+    """render_hdr over sponza_proxy's tree with a one-slot stack, or with
+    its leaf links out of range: both launches run, their bits join the
+    frame's word, and the frame's one read raises."""
+    scene, static, cam, cfg = sponza(cuda, 64)
+    tree = scene.accel
+    broken = {"stack overflow": dataclasses.replace(tree, stack_depth=1),
+              "bad link": dataclasses.replace(tree, links=torch.where(
+                  tree.links < 0, tree.links - 10 ** 6, tree.links))}[fault]
+    with profiling.recording() as sink:
+        with pytest.raises(RuntimeError, match="traverse_wide: .*" + fault):
+            render_hdr(scene.replace(accel=broken), static, cam, cfg)
+    assert launches(sink.counts) == 2
+    assert sink.counts["launch_error.deferred"] == 2
+    assert sink.counts["sync.launch_error"] == 1
 
 
 def test_backward_spans_are_roots_on_autograd_thread(cuda):
